@@ -1,8 +1,10 @@
 """Typed public API of the port: problem + config dataclasses, warm sessions.
 
 Port of ``repro.api`` for the paths ported so far: ``op="cg"`` with the
-``hs`` variant and ``op="spmv"``, on ELL partitions, with the
-BCMGX-analog leg and the Ginkgo-analog leg beside it.
+``hs``, ``fcg`` and ``pipecg`` variants, multi-RHS block-HS CG
+(``nrhs > 1``), and ``op="spmv"``, on ELL partitions, with the
+BCMGX-analog leg and — for single-RHS solves — the Ginkgo-analog leg
+beside it.
 
 * :class:`ProblemSpec` — *what* to solve (problem/side/scale/shards);
 * :class:`SolverConfig` — *how* to solve it, with the JAX package's
@@ -267,14 +269,10 @@ class SolverConfig:
     def check_ported(self):
         """Raise ``NotImplementedError`` for a valid config the port cannot
         run yet, naming its ``ROADMAP.md`` queue item."""
-        if self.variant in ("fcg", "pipecg"):
-            _not_ported(f"CG variant {self.variant!r}", "item 6")
         if self.variant == "sstep":
             _not_ported("s-step CG", "item 9")
         if self.fmt != "ell":
             _not_ported(f"interior format {self.fmt!r}", "item 8")
-        if self.nrhs > 1:
-            _not_ported("multi-RHS block CG (nrhs > 1)", "item 7")
         if self.amg or self.amgx_analog:
             _not_ported("AMG preconditioning", "item 12")
         if self.autotune:
@@ -291,8 +289,9 @@ class SolveReport:
 
     ``summary`` holds one compact dict per executed leg; ``ledger`` is the
     JSON payload ``--ledger`` writes; ``outputs`` maps each leg to its last
-    result as a host numpy vector in global (unpadded) order — the solution
-    ``x`` of a CG leg, ``y = A @ 1`` of an SpMV leg."""
+    result as a host numpy array in global (unpadded) order — the solution
+    ``x`` of a CG leg (the ``(n, nrhs)`` block of a block leg), ``y = A @ 1``
+    of an SpMV leg."""
 
     problem: str
     n: int
@@ -442,7 +441,9 @@ def solve(
 
     Loads (or reuses) the problem and its partitions through a warm
     :class:`SolverSession` (``session``, else :func:`session_for`), runs
-    the BCMGX-analog leg and the Ginkgo-analog leg under the energy trace,
+    the BCMGX-analog leg and — unless ``config.nrhs > 1``, whose batched
+    block-HS leg has no single-RHS baseline beside it, as in the JAX
+    package — the Ginkgo-analog leg under the energy trace,
     prints the driver report (``verbose``), optionally writes the ledger
     JSON, and returns a :class:`SolveReport`. Everything runs in float64,
     as the JAX package's CLI does.
@@ -461,7 +462,7 @@ def solve(
     import numpy as np
     import torch
 
-    from repro_torch.core.partition import pad_vector, unpad_vector
+    from repro_torch.core.partition import pad_block, pad_vector, unpad_vector
     from repro_torch.energy import trace
     from repro_torch.energy.accounting import CostModel
     from repro_torch.obs.provenance import ledger_meta
@@ -491,8 +492,12 @@ def solve(
         shards=int(n_shards), op=config.op, overlap=bool(overlap),
         format=config.fmt, nrhs=config.nrhs, solvers={}, meta=ledger_meta(dev),
     )
+    nrhs = config.nrhs
     mat = session.matrix(config.fmt, config.block)
-    matg = session.naive_matrix()
+    # the naive baseline is single-RHS by definition: its (expensive)
+    # all-gather partition is built only when a naive leg will run
+    need_naive = config.op == "spmv" or nrhs == 1
+    matg = session.naive_matrix() if need_naive else None
     log(
         f"format={mat.fmt} (requested {config.fmt}) "
         f"interior_bytes={mat.interior_stored_bytes()} "
@@ -503,7 +508,12 @@ def solve(
     payload["stored_bytes"] = int(mat.stored_bytes())
 
     dt = mat.dtype
-    bp = torch.from_numpy(pad_vector(b, mat)).to(dev, dt)
+    if nrhs > 1:
+        from repro_torch.core.cg import default_rhs_block
+
+        bp = torch.from_numpy(pad_block(default_rhs_block(n, nrhs), mat)).to(dev, dt)
+    else:
+        bp = torch.from_numpy(pad_vector(b, mat)).to(dev, dt)
     x0 = torch.zeros_like(bp)
     summary, outputs = {}, {}
 
@@ -557,13 +567,14 @@ def solve(
 
     legs = [
         ("BCMGX-analog", mat, ("ell", config.block), session.solver(
-            mat, variant=config.variant, tol=config.tol,
+            mat, nrhs=nrhs, variant=config.variant, tol=config.tol,
             maxiter=config.maxiter, overlap=overlap,
         )),
-        ("Ginkgo-analog", matg, ("allgather", 0), session.solver(
-            matg, variant="naive", tol=config.tol, maxiter=config.maxiter,
-        )),
     ]
+    if need_naive:
+        legs.append(("Ginkgo-analog", matg, ("allgather", 0), session.solver(
+            matg, variant="naive", tol=config.tol, maxiter=config.maxiter,
+        )))
     for label, m, mkey, hdl in legs:
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
@@ -577,7 +588,9 @@ def solve(
             walls.append(time.perf_counter() - t0)
         wall = sum(walls) / len(walls)
         iters = int(res.iters)
-        relres = float(res.rel_residual)
+        # the batched leg converges each column independently: report the
+        # slowest column's residual (convergence of the whole batch)
+        relres = float(res.rel_residual.max())
         is_bcmgx = label == "BCMGX-analog"
         led = trace.ledger_from_trace(
             tr, iters=iters, n_shards=n_shards, cost=cost,
@@ -597,26 +610,30 @@ def solve(
         )
         if verbose:
             _print_regions(label, led)
-        payload["solvers"][label] = dict(
+        entry = dict(
             led, wall_s=wall, modeled_s=t_model,
             relres=relres, setup_s=0.0,
             variant=config.variant if is_bcmgx else "naive",
-            nrhs=1,
-            per_solve_modeled_s=t_model,
-            per_solve_de_j=e["de_total"],
-            per_solve_spmv_matrix_bytes=matrix_bytes,
+            # per-solve amortization view: a batched run is nrhs solves
+            nrhs=nrhs,
+            per_solve_modeled_s=t_model / nrhs,
+            per_solve_de_j=e["de_total"] / nrhs,
+            per_solve_spmv_matrix_bytes=matrix_bytes / nrhs,
             wall_repeats_s=walls,
-            per_solve_wall_s=wall,
+            per_solve_wall_s=wall / nrhs,
             partition_s=session.partition_s[mkey],
             peak_mem_bytes=_peak_mem(dev),
         )
+        if nrhs > 1:
+            entry["iters_cols"] = [int(v) for v in res.iters_cols.tolist()]
+        payload["solvers"][label] = entry
         outputs[label] = unpad_vector(res.x, m)
         summary[label] = dict(
             iters=iters, relres=relres, wall_s=wall, modeled_s=t_model,
             de_total=e["de_total"],
         )
         if is_bcmgx:
-            session.solves += config.repeats
+            session.solves += nrhs * config.repeats
     write_ledger_json(ledger, payload)
     return SolveReport(
         problem=name, n=int(n), nnz=int(a.nnz), shards=int(n_shards),

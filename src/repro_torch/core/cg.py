@@ -1,29 +1,40 @@
-"""Distributed Conjugate Gradient (port of ``repro.core.cg``, ``hs`` variant).
+"""Distributed Conjugate Gradient (port of ``repro.core.cg``).
 
-``hs`` is the classical Hestenes–Stiefel PCG with two all-reduces per
-iteration (the (p, Ap) dot, and the fused ||r||^2 that the x/r update
-kernel accumulates in the same pass). The other variants of the JAX
-package (fcg, pipecg, sstep, block CG) are later slices of the port and
-raise ``NotImplementedError`` here.
+The variants ported so far:
+
+* ``hs``     — the classical Hestenes–Stiefel PCG with two all-reduces per
+  iteration (the (p, Ap) dot, and the fused ||r||^2 that the x/r update
+  kernel accumulates in the same pass);
+* ``fcg``    — the single-synchronization Chronopoulos–Gear CG: ONE fused
+  all-reduce per iteration ((r, u), (w, u), ||r||^2 packed together);
+* ``pipecg`` — the Ghysels–Vanroose pipelined CG: ONE fused all-reduce per
+  iteration, issued before the SpMV that does not depend on it (with
+  ``overlap`` both land in the ``"overlap"`` energy region);
+* block-HS CG for ``(S, R, r)`` right-hand-side blocks
+  (:func:`make_block_solver`), with deflation and a ridge.
+
+s-step CG is a later slice and raises ``NotImplementedError``.
 
 The JAX package runs the solver inside one jitted ``shard_map`` with a
-``lax.while_loop``; the port runs the same body eagerly over the stacked
+``lax.while_loop``; the port runs the same bodies eagerly over the stacked
 ``(S, R)`` shard layout on one device:
 
 * every collective is an explicit sum over the shard axis of per-shard
   partials, recorded like the JAX package records its ``psum``;
 * the hot-loop vector work goes through the kernel dispatch ``OpSet`` —
-  on a CUDA device the hand-written Hopper kernels, three launches per
-  iteration outside the SpMV;
-* the loop test ``rr > tol2`` reads one scalar back to the host: one
-  device-to-host sync per iteration (the only one: the step scalars alpha
-  and beta stay on the device). Capturing the body in a CUDA graph would
-  remove it and is left to a later slice.
+  on a CUDA device the hand-written Hopper kernels;
+* each loop test (``rr > tol2``, or ``any(diag(RR) > tol2)`` for the block
+  body) reads one value back to the host: one device-to-host sync per
+  iteration (the only one: the step scalars and the ``(r, r)`` step blocks
+  stay on the device). Capturing the body in a CUDA graph would remove it
+  and is left to a later slice.
 
 Counts are recorded eagerly: the iteration section is entered once per
 executed iteration, so the energy trace and the sweep ledger divide back
 to per-iteration counts, the same numbers the JAX package records by
-tracing its loop body once.
+tracing its loop body once. A loop that runs zero times still records one
+iteration (:func:`_loop`), as the JAX package's ledger charges
+``max(iters, 1)`` iterations of its traced body.
 """
 
 from __future__ import annotations
@@ -36,12 +47,10 @@ import torch
 
 from repro_torch.core.partition import DistMat
 from repro_torch.core.spmv import overlap_default, spmv_shard
-from repro_torch.core.vectors import all_reduce, fused_dots
+from repro_torch.core.vectors import all_reduce, fused_blocks, fused_dots
 from repro_torch.energy import trace
 from repro_torch.kernels import dispatch as kd
 from repro_torch.launch.mesh import resolve_device
-
-VARIANTS = ("hs",)
 
 
 class Preconditioner(NamedTuple):
@@ -50,13 +59,22 @@ class Preconditioner(NamedTuple):
 
     data: Any
     apply: Callable[[Any, torch.Tensor], torch.Tensor]
-    # True for the identity: lets the body skip the apply AND reuse the
+    # True for the identity: lets the bodies skip the apply AND reuse the
     # fused-kernel residual norm for (r, z) — one fewer sweep per iteration.
     is_identity: bool = False
 
 
 def identity_precond() -> Preconditioner:
     return Preconditioner(data=(), apply=lambda data, r: r, is_identity=True)
+
+
+def _safe_div(num, den):
+    """num/den, but 0 when den == 0 — guards the pre-loop step of the
+    fcg/pipecg bodies against a zero initial residual (r0 = 0 makes every
+    Gram scalar 0; the update must then be a no-op, not NaN)."""
+    ok = den != 0
+    return torch.where(ok, num / torch.where(ok, den, torch.ones_like(den)),
+                       torch.zeros_like(num))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,12 +89,52 @@ class SolveResult:
         return torch.sqrt(self.rr / torch.clamp(self.bb, min=1e-300))
 
 
+@dataclasses.dataclass(frozen=True)
+class BlockSolveResult:
+    """Result of a multi-RHS block solve (:func:`make_block_solver`)."""
+
+    x: torch.Tensor  # (S, R, r) padded stacked solution block
+    iters: int  # iterations until the LAST column converged
+    iters_cols: torch.Tensor  # (r,) iteration at which each column first converged
+    rr: torch.Tensor  # (r,) final per-column ||r_j||^2
+    bb: torch.Tensor  # (r,) per-column ||b_j||^2
+
+    @property
+    def rel_residual(self) -> torch.Tensor:
+        """(r,) per-column relative residuals."""
+        return torch.sqrt(self.rr / torch.clamp(self.bb, min=1e-300))
+
+
+def _loop(cond, body, c):
+    """``while cond(c): c = body(c)``, as ``lax.while_loop``.
+
+    When the loop runs zero times the body still runs once, its outputs
+    thrown away: the JAX package traces its body once whatever the trip
+    count and its ledger charges ``max(iters, 1)`` iterations, so the
+    iteration section must hold one iteration's counts here too. The
+    returned carry is the one the loop left.
+    """
+    ran = False
+    while cond(c):
+        c = body(c)
+        ran = True
+    if not ran:
+        body(c)
+    return c
+
+
+# ---------------------------------------------------------------------------
+# Solver bodies (all shards at once, on the stacked layout)
+# ---------------------------------------------------------------------------
+
+
 def _hs_body(A, pre: Preconditioner, pdata, b, x0, *, tol, maxiter, ops):
     """Hestenes–Stiefel PCG; 2 all-reduces/iter (one fused).
 
     With the identity preconditioner each iteration is 3 full-vector HBM
     sweeps outside the SpMV (p·w dot; fused x/r update + ||r||²; p update),
-    each one kernel launch on the card.
+    each one kernel launch on the card. The loop test costs one host sync
+    per iteration.
     """
     with trace.region("spmv"):
         r = b - A(x0)
@@ -87,9 +145,12 @@ def _hs_body(A, pre: Preconditioner, pdata, b, x0, *, tol, maxiter, ops):
     rz, rr, bb = d0[0], d0[1], d0[2]
     tol2 = tol * tol * bb
 
-    i, x, p = 0, x0, z
-    # one device-to-host sync per iteration: the loop test
-    while i < maxiter and bool(rr > tol2):
+    def cond(c):
+        i, x, r, z, p, rz, rr = c
+        return i < maxiter and bool(rr > tol2)  # one device-to-host sync
+
+    def body(c):
+        i, x, r, z, p, rz, rr = c
         with kd.ledger_section("iteration"):
             with trace.region("spmv"):
                 w = A(p)
@@ -116,12 +177,251 @@ def _hs_body(A, pre: Preconditioner, pdata, b, x0, *, tol, maxiter, ops):
             beta = rz_new / rz
             with trace.region("reductions"):
                 p = ops.axpy(beta, p, z)
-            rz = rz_new
-        i += 1
-    return x, i, rr, bb
+        return (i + 1, x, r, z, p, rz_new, rr)
+
+    c = _loop(cond, body, (0, x0, r, z, z, rz, rr))
+    return c[1], c[0], c[6], bb
 
 
-_BODIES = {"hs": _hs_body}
+def _fcg_body(A, pre: Preconditioner, pdata, b, x0, *, tol, maxiter, ops):
+    """Single-synchronization (communication-reduced flexible) CG.
+
+    Chronopoulos–Gear two-term recurrence: ONE fused all-reduce per
+    iteration. With the identity preconditioner each iteration is 3
+    full-vector HBM sweeps outside the SpMV, each one kernel launch on the
+    card: the fused triple dot (reads {r, w} once — u aliases r), the fused
+    p/s update and the fused x/r update. The loop test costs one host sync
+    per iteration; the iteration count starts at 1 (the pre-loop step).
+    """
+    with trace.region("spmv"):
+        r = b - A(x0)
+    with trace.region("precond"):
+        u = pre.apply(pdata, r)
+    with trace.region("spmv"):
+        w = A(u)
+    with trace.region("reductions"):
+        d0 = fused_dots([(r, u), (w, u), (r, r), (b, b)])
+    gamma, delta, rr, bb = d0[0], d0[1], d0[2], d0[3]
+    tol2 = tol * tol * bb
+
+    alpha = _safe_div(gamma, delta)  # r0 == 0 -> no-op first step, not NaN
+    p, s = u, w
+    x = x0 + alpha * p
+    r = r - alpha * s
+
+    def cond(c):
+        i, x, r, p, s, gamma, alpha, rr = c
+        return i < maxiter and bool(rr > tol2)  # one device-to-host sync
+
+    def body(c):
+        i, x, r, p, s, gamma, alpha, rr = c
+        with kd.ledger_section("iteration"):
+            if pre.is_identity:
+                u = r
+            else:
+                with trace.region("precond"):
+                    u = pre.apply(pdata, r)
+            with trace.region("spmv"):
+                w = A(u)
+            with trace.region("reductions"):
+                d = all_reduce(  # the ONE all-reduce
+                    ops.fused_dots_n([(r, u), (w, u), (r, r)])
+                )
+                trace.record_collective(3, w.element_size())
+                gamma_new, delta, rr = d[0], d[1], d[2]
+                beta = gamma_new / gamma
+                alpha_new = gamma_new / (delta - beta * gamma_new / alpha)
+                p, s = ops.fused_axpy2(beta, p, u, beta, s, w)  # p=u+βp ; s=w+βs
+                x, r = ops.fused_axpy2(alpha_new, p, x, -alpha_new, s, r)
+        return (i + 1, x, r, p, s, gamma_new, alpha_new, rr)
+
+    c = _loop(cond, body, (1, x, r, p, s, gamma, alpha, rr))
+    return c[1], c[0], c[7], bb
+
+
+def _pipecg_body(A, pre: Preconditioner, pdata, b, x0, *, tol, maxiter, ops,
+                 overlap=True):
+    """Ghysels–Vanroose pipelined PCG: ONE all-reduce/iter, hidden.
+
+    The fused reduction (w·r and ||r||² under the identity preconditioner)
+    is issued at the top of the body; the SpMV ``n = A (M w)`` that follows
+    does not depend on its result — with ``overlap=True`` both are
+    attributed to the ``"overlap"`` energy region (modeled hidden). With the
+    identity preconditioner each iteration is 4 full-vector HBM sweeps
+    outside the SpMV: the fused dot pass and 3 fused axpy2 passes, each one
+    kernel launch on the card.
+
+    The convergence check uses the ||r||² from the fused reduction, which
+    lags the updated residual by one iteration — the standard pipelined-CG
+    trade of one extra iteration for the hidden latency. The loop test costs
+    one host sync per iteration; the count starts at 1 (the pre-loop step).
+    """
+    # -- init: r0, u0 = M r0, w0 = A u0, first reduction + first update -----
+    with trace.region("spmv"):
+        r = b - A(x0)
+    if pre.is_identity:
+        u = r
+    else:
+        with trace.region("precond"):
+            u = pre.apply(pdata, r)
+    with trace.region("spmv"):
+        w = A(u)
+    with trace.region("reductions"):
+        d0 = fused_dots([(r, u), (w, u), (r, r), (b, b)])
+    gamma, delta, rr, bb = d0[0], d0[1], d0[2], d0[3]
+    tol2 = tol * tol * bb
+
+    if pre.is_identity:
+        m = w
+    else:
+        with trace.region("precond"):
+            m = pre.apply(pdata, w)
+    with trace.region("spmv"):
+        n = A(m)
+    alpha = _safe_div(gamma, delta)  # r0 == 0 -> no-op first step, not NaN
+    z, q, s_, p = n, m, w, u
+    x = x0 + alpha * p
+    r = r - alpha * s_
+    u = r if pre.is_identity else u - alpha * q
+    w = w - alpha * z
+
+    def _reduce(r, u, w):
+        """Issue the ONE fused all-reduce (the SpMV that follows does not
+        depend on its result — that independence is the pipeline)."""
+        pairs = [(w, r), (r, r)] if pre.is_identity else [(r, u), (w, u), (r, r)]
+        d = all_reduce(ops.fused_dots_n(pairs))
+        trace.record_collective(len(pairs), w.element_size())
+        return d
+
+    def _precond_w(w):
+        if pre.is_identity:
+            return w
+        with trace.region("precond"):
+            return pre.apply(pdata, w)
+
+    def cond(c):
+        i, x, r, u, w, p, s_, q, z, gamma, alpha, rr = c
+        return i < maxiter and bool(rr > tol2)  # one device-to-host sync
+
+    def body(c):
+        i, x, r, u, w, p, s_, q, z, gamma, alpha, rr = c
+        with kd.ledger_section("iteration"):
+            if overlap:
+                # reduction + concurrent SpMV: one co-scheduled phase
+                with trace.region(trace.OVERLAP):
+                    d = _reduce(r, u, w)
+                    m = _precond_w(w)
+                    n = A(m)
+            else:
+                # serialized A/B reference: the reduction blocks, then the
+                # SpMV runs — attributed like the hs/fcg bodies
+                with trace.region("reductions"):
+                    d = _reduce(r, u, w)
+                m = _precond_w(w)
+                with trace.region("spmv"):
+                    n = A(m)
+            if pre.is_identity:
+                delta, gamma_new, rr = d[0], d[1], d[1]
+            else:
+                gamma_new, delta, rr = d[0], d[1], d[2]
+            beta = gamma_new / gamma
+            alpha_new = gamma_new / (delta - beta * gamma_new / alpha)
+            with trace.region("reductions"):
+                if pre.is_identity:
+                    # 3 fused passes: (z, s), (p, w), (x, r); u == r, q == s
+                    z, s_ = ops.fused_axpy2(beta, z, n, beta, s_, w)
+                    p, w = ops.fused_axpy2(beta, p, r, -alpha_new, z, w)
+                    x, r = ops.fused_axpy2(alpha_new, p, x, -alpha_new, s_, r)
+                    u, q = r, s_
+                else:
+                    z, q = ops.fused_axpy2(beta, z, n, beta, q, m)
+                    s_, p = ops.fused_axpy2(beta, s_, w, beta, p, u)
+                    x, r = ops.fused_axpy2(alpha_new, p, x, -alpha_new, s_, r)
+                    u, w = ops.fused_axpy2(-alpha_new, q, u, -alpha_new, z, w)
+        return (i + 1, x, r, u, w, p, s_, q, z, gamma_new, alpha_new, rr)
+
+    c = _loop(cond, body, (1, x, r, u, w, p, s_, q, z, gamma, alpha, rr))
+    return c[1], c[0], c[11], bb
+
+
+def _block_hs_body(A, B, X0, *, tol, maxiter, ops):
+    """Breakdown-guarded block Hestenes–Stiefel CG for (S, R, r) RHS blocks.
+
+    The scalar recurrences become r×r Gram algebra: alpha/beta are small
+    matrix solves against the P'AP and R'R Grams, and the matrix is read
+    ONCE per iteration for all r right-hand sides (the SpMM). Still 2
+    all-reduces/iter — each now carries r² scalars instead of 1. Each
+    iteration launches 4 kernels on the card: two ``block_gram``, one
+    ``block_update2`` and one ``block_update``.
+
+    Guard policy (as in the JAX package):
+      * deflation — a column whose residual has met its per-column target
+        is masked out of both Gram solves (its alpha/beta columns are
+        exactly zero, freezing x_j and r_j) and its search direction is
+        zeroed, so a converged system cannot re-pollute the block;
+      * ridge — the masked Grams get a trace-scaled ``eps`` ridge before
+        the solve, so (near-)linearly-dependent RHS columns degrade the
+        step slightly instead of producing NaNs.
+
+    The ``(r, r)`` solves run on the device through
+    ``torch.linalg.solve_ex`` (plain ``solve`` checks ``info`` on the host:
+    a sync of its own). The loop test ``any(diag(RR) > tol2)`` costs one
+    host sync per iteration.
+    """
+    dt = B.dtype
+    nrhs = B.shape[-1]
+    eye = torch.eye(nrhs, dtype=dt, device=B.device)
+
+    with trace.region("spmv"):
+        R_ = B - A(X0)
+    with trace.region("reductions"):
+        rr0_loc, bb_loc = ops.block_gram([(R_, R_), (B, B)])
+        d0 = fused_blocks([rr0_loc, torch.diagonal(bb_loc, dim1=-2, dim2=-1)])
+    RR = d0[: nrhs * nrhs].reshape(nrhs, nrhs)
+    bb = d0[nrhs * nrhs:]
+    tol2 = tol * tol * bb  # per-column targets
+
+    def _msolve(G, RHS, md):
+        # mask converged rows/cols out, keep the system well-posed with a
+        # unit diagonal there, and ridge against RHS-column collinearity
+        m2 = md[:, None] * md[None, :]
+        Gm = G * m2 + torch.diag(1.0 - md)
+        ridge = torch.finfo(dt).eps * torch.trace(Gm) / nrhs
+        return torch.linalg.solve_ex(Gm + ridge * eye, RHS * m2)[0]
+
+    def cond(c):
+        i, X, R_, Pb, RR, it_cols = c
+        # one device-to-host sync
+        return i < maxiter and bool(torch.any(torch.diagonal(RR) > tol2))
+
+    def body(c):
+        i, X, R_, Pb, RR, it_cols = c
+        md = (torch.diagonal(RR) > tol2).to(dt)  # 1 = still active
+        with kd.ledger_section("iteration"):
+            with trace.region("spmv"):
+                W = A(Pb)  # matrix read once for all r columns
+            with trace.region("reductions"):
+                pw_loc = ops.block_gram([(Pb, W)])[0]
+                PW = fused_blocks([pw_loc]).reshape(nrhs, nrhs)  # AR 1
+                alpha = _msolve(PW, RR, md)
+                # X += P alpha ; R -= W alpha — ONE fused pass
+                X, R_ = ops.block_update2(alpha, Pb, X, -alpha, W, R_)
+                rr_loc = ops.block_gram([(R_, R_)])[0]
+                RRn = fused_blocks([rr_loc]).reshape(nrhs, nrhs)  # AR 2
+                beta = _msolve(RR, RRn, md)
+                Pb = ops.block_update(beta, Pb, R_, mask=md)
+        it_cols = torch.where(torch.diagonal(RRn) <= tol2,
+                              it_cols.clamp(max=i + 1), it_cols)
+        return (i + 1, X, R_, Pb, RRn, it_cols)
+
+    it0 = torch.full((nrhs,), maxiter, dtype=torch.int32, device=B.device)
+    it0 = it0.masked_fill(torch.diagonal(RR) <= tol2, 0)
+    c = _loop(cond, body, (0, X0, R_, R_, RR, it0))
+    return c[1], c[0], c[5], torch.diagonal(c[4]), bb
+
+
+_BODIES = {"hs": _hs_body, "fcg": _fcg_body, "pipecg": _pipecg_body}
+VARIANTS = tuple(_BODIES)
 
 
 def make_solver(
@@ -140,14 +440,17 @@ def make_solver(
     Args:
         mat: the stacked distributed matrix (``partition_csr``); moved to
             ``device`` if it is elsewhere.
-        variant: ``"hs"`` (the only variant ported so far).
+        variant: ``"hs"`` | ``"fcg"`` | ``"pipecg"`` (``"sstep"`` is not
+            ported yet).
         precond: a :class:`Preconditioner` (None = identity).
         tol: relative residual target; convergence is declared at
             ``||r||^2 <= tol^2 * ||b||^2``.
         maxiter: iteration cap.
         kernels: None/'auto' (follow the device) or one of
             ``kernels.dispatch.BACKENDS`` (checked against the operands).
-        overlap: communication-hiding SpMV schedule (default on).
+        overlap: communication-hiding schedule (default on): the SpMV runs
+            its interior beside the halo exchange, and ``pipecg`` issues
+            its all-reduce beside the SpMV.
         device: ``cuda`` unless the caller passes ``"cpu"``; raises when
             CUDA is asked for and absent.
 
@@ -159,21 +462,20 @@ def make_solver(
     if variant not in _BODIES:
         raise NotImplementedError(
             f"CG variant {variant!r} is not ported to repro_torch yet "
-            "(ROADMAP.md, queue 1, items 6, 7 and 9)"
+            "(ROADMAP.md, queue 1, item 9)"
         )
     dev = resolve_device(device)
     mat = mat.to(dev)
     pre = precond or identity_precond()
     body = _BODIES[variant]
-    ops = kd.ops_for(kernels)
+    kw = dict(tol=tol, maxiter=maxiter, ops=kd.ops_for(kernels))
+    if variant == "pipecg":
+        kw["overlap"] = overlap
 
     def solve(b: torch.Tensor, x0: torch.Tensor) -> SolveResult:
         A = lambda v: spmv_shard(mat, v, overlap=overlap)
         with overlap_default(overlap):
-            x, iters, rr, bb = body(
-                A, pre, pre.data, b.to(dev), x0.to(dev),
-                tol=tol, maxiter=maxiter, ops=ops,
-            )
+            x, iters, rr, bb = body(A, pre, pre.data, b.to(dev), x0.to(dev), **kw)
         return SolveResult(x=x, iters=int(iters), rr=rr, bb=bb)
 
     return solve
@@ -191,6 +493,80 @@ def solve_cg(mat: DistMat, b_np, *, x0_np=None, device=None, **kw) -> SolveResul
     solver = make_solver(mat, device=dev, **kw)
     dt = mat.dtype
     return solver(torch.from_numpy(bp).to(dev, dt), torch.from_numpy(xp).to(dev, dt))
+
+
+def make_block_solver(
+    mat: DistMat,
+    *,
+    precond: Preconditioner | None = None,
+    tol: float = 1e-8,
+    maxiter: int = 100,
+    kernels: str | None = None,
+    overlap: bool = True,
+    device=None,
+):
+    """Build a multi-RHS block solver ``solve(B, X0) -> BlockSolveResult``.
+
+    ``B``/``X0`` are ``(S, R, r)`` padded stacked blocks
+    (``partition.pad_block``). Runs the breakdown-guarded block-HS body: the
+    matrix is streamed once per iteration for all ``r`` right-hand sides,
+    converged columns are deflated, and each column's convergence is
+    declared against its own ``tol^2 * ||b_j||^2`` target.
+
+    Only the identity preconditioner is supported (the block recurrences
+    assume the unpreconditioned R'R Gram); pass ``precond=None``. The other
+    arguments are those of :func:`make_solver`.
+    """
+    if precond is not None and not precond.is_identity:
+        raise ValueError(
+            "block-CG supports the identity preconditioner only; "
+            "use make_solver(variant=...) per column for preconditioned solves"
+        )
+    dev = resolve_device(device)
+    mat = mat.to(dev)
+    ops = kd.ops_for(kernels)
+
+    def solve(B: torch.Tensor, X0: torch.Tensor) -> BlockSolveResult:
+        A = lambda v: spmv_shard(mat, v, overlap=overlap)
+        with overlap_default(overlap):
+            X, iters, it_cols, rr, bb = _block_hs_body(
+                A, B.to(dev), X0.to(dev), tol=tol, maxiter=maxiter, ops=ops,
+            )
+        return BlockSolveResult(x=X, iters=int(iters), iters_cols=it_cols,
+                                rr=rr, bb=bb)
+
+    return solve
+
+
+def default_rhs_block(n: int, nrhs: int, dtype="float64"):
+    """Deterministic (n, nrhs) RHS block with distinct, well-scaled columns.
+
+    Column 0 is the all-ones vector the single-RHS solves use; later
+    columns add a small distinct sinusoid so the block is full-rank without
+    changing the magnitude scale (keeps iteration counts comparable)."""
+    import numpy as np
+
+    i = np.arange(n, dtype=np.float64)
+    cols = [
+        np.ones(n) + 0.1 * j * np.sin((j + 1) * np.pi * (i + 0.5) / n)
+        for j in range(nrhs)
+    ]
+    return np.stack(cols, axis=1).astype(dtype)
+
+
+def solve_block_cg(mat: DistMat, B_np, *, x0_np=None, device=None, **kw) -> BlockSolveResult:
+    """Convenience host-level block solve: numpy (n, r) in, BlockSolveResult
+    out."""
+    import numpy as np
+
+    from repro_torch.core.partition import pad_block
+
+    dev = resolve_device(device)
+    Bp = pad_block(np.asarray(B_np), mat)
+    Xp = pad_block(np.asarray(x0_np), mat) if x0_np is not None else np.zeros_like(Bp)
+    solver = make_block_solver(mat, device=dev, **kw)
+    dt = mat.dtype
+    return solver(torch.from_numpy(Bp).to(dev, dt), torch.from_numpy(Xp).to(dev, dt))
 
 
 # ---------------------------------------------------------------------------
@@ -260,18 +636,14 @@ def solver_handle(
     cache: dict | None = None,
 ) -> SolverHandle:
     """Cached solver keyed by (matrix identity, config): build once, solve
-    many. Routes to the Ginkgo-analog baseline for ``variant="naive"``, the
-    distributed SpMV for ``op="spmv"`` (``variant="naive"`` selects the
-    all-gather SpMV), and :func:`make_solver` otherwise. ``nrhs > 1``
-    (block CG) is not ported yet."""
-    if int(nrhs) > 1:
-        raise NotImplementedError(
-            "multi-RHS block CG is not ported to repro_torch yet "
-            "(ROADMAP.md, queue 1, item 7)"
-        )
+    many. Routes to the distributed SpMV for ``op="spmv"``
+    (``variant="naive"`` selects the all-gather SpMV), to
+    :func:`make_block_solver` when ``nrhs > 1``, to the Ginkgo-analog
+    baseline for ``variant="naive"``, and to :func:`make_solver`
+    otherwise."""
     dev = resolve_device(device)
     key = (
-        id(mat), str(op), str(variant),
+        id(mat), str(op), int(max(nrhs, 1)), str(variant),
         None if precond is None else id(precond),
         float(tol), int(maxiter), kernels, bool(overlap), str(dev),
     )
@@ -287,6 +659,11 @@ def solver_handle(
 
         m = mat.to(dev)
         fn = make_naive_spmv(m) if variant == "naive" else make_spmv(m, overlap=overlap)
+    elif nrhs > 1:
+        fn = make_block_solver(
+            mat, precond=precond, tol=tol, maxiter=maxiter, kernels=kernels,
+            overlap=overlap, device=dev,
+        )
     elif variant == "naive":
         from repro_torch.core.baselines import make_naive_solver
 

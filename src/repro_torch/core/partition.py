@@ -146,6 +146,13 @@ class ELLBlock:
         offs = torch.arange(S, dtype=torch.int32, device=self.col.device) * R
         return (self.col + offs[:, None, None]).reshape(-1)
 
+    @functools.cached_property
+    def slot_col(self) -> torch.Tensor:
+        """(k, S*R) int32: :attr:`flat_col` slot-major, so the SpMM gathers
+        one slot's rows with a contiguous index."""
+        S, R, k = self.col.shape
+        return self.flat_col.view(S * R, k).t().contiguous()
+
 
 @dataclasses.dataclass(frozen=True)
 class DistMat:
@@ -474,10 +481,11 @@ def distmat_from_numpy(
 
 
 def pad_vector(x: np.ndarray, mat: DistMat) -> np.ndarray:
-    """Global vector -> (S, R) padded shard layout."""
+    """Global vector -> (S, R) padded shard layout (trailing axes, as of
+    an (n, r) block, are carried along)."""
     S, R = mat.n_shards, mat.n_own_pad
     starts = np.asarray(mat.row_starts, np.int64)
-    out = np.zeros((S, R), x.dtype)
+    out = np.zeros((S, R) + x.shape[1:], x.dtype)
     rows = np.arange(len(x), dtype=np.int64)
     shard = np.searchsorted(starts[1:], rows, side="right")
     out[shard, rows - starts[shard]] = x
@@ -485,7 +493,7 @@ def pad_vector(x: np.ndarray, mat: DistMat) -> np.ndarray:
 
 
 def unpad_vector(xp, mat: DistMat) -> np.ndarray:
-    """(S, R) padded shard layout -> global vector."""
+    """(S, R) padded shard layout -> global vector (trailing axes carried)."""
     if isinstance(xp, torch.Tensor):
         xp = xp.detach().cpu().numpy()
     xp = np.asarray(xp)
@@ -494,3 +502,13 @@ def unpad_vector(xp, mat: DistMat) -> np.ndarray:
     rows = np.arange(n, dtype=np.int64)
     shard = np.searchsorted(starts[1:], rows, side="right")
     return xp[shard, rows - starts[shard]]
+
+
+def pad_block(X: np.ndarray, mat: DistMat) -> np.ndarray:
+    """Global (n, r) right-hand-side block -> (S, R, r) padded shard layout."""
+    return pad_vector(np.asarray(X), mat)
+
+
+def unpad_block(Xp, mat: DistMat) -> np.ndarray:
+    """(S, R, r) padded shard layout -> global (n, r) block."""
+    return unpad_vector(Xp, mat)

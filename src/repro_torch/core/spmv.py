@@ -15,6 +15,12 @@ is attributed to the ``"overlap"`` energy region. ``overlap=False`` keeps
 the serialized order (regions ``"halo"`` + ``"spmv"``). Both give the same
 result; only the schedule and the region attribution differ.
 
+Every function also takes an ``(S, R, r)`` stack of column blocks (the
+multi-RHS SpMM of block CG): the matrix is streamed once for all ``r``
+right-hand sides, the vector traffic and the halo payload scale with
+``r``, and the counts are recorded under the ``*_spmm`` names, as in the
+JAX package.
+
 The ELL matvec is a gather + reduction in PyTorch, as it is a ``jnp``
 gather in the JAX package (no Pallas kernel). Counts are recorded per
 shard, with the per-shard sizes the JAX package's local blocks have.
@@ -31,26 +37,54 @@ from repro_torch.energy import trace
 from repro_torch.energy.accounting import OpCounts
 
 
-def _gather(x: torch.Tensor, flat_idx: torch.Tensor, shape) -> torch.Tensor:
-    return x.reshape(-1).index_select(0, flat_idx).view(shape)
+def _gather(x: torch.Tensor, flat_idx: torch.Tensor, shape, r: int = 0) -> torch.Tensor:
+    """Rows ``flat_idx`` of the flattened stack ``x``, viewed as ``shape``
+    (vectors, ``r == 0``) or ``shape + (r,)`` (column blocks).
+
+    A block's r-wide rows are gathered element by element through the flat
+    view: on the card a row-wise ``index_select`` of short rows runs far
+    below the memory rate, a flat one near it."""
+    if not r:
+        return x.reshape(-1).index_select(0, flat_idx).view(shape)
+    idx = flat_idx if x.numel() < 2 ** 31 else flat_idx.long()
+    cols = torch.arange(r, dtype=idx.dtype, device=idx.device)
+    eidx = (idx[:, None] * r + cols).reshape(-1)
+    return x.reshape(-1).index_select(0, eidx).view(*shape, r)
+
+
+def _nrhs(x: torch.Tensor, stack_dims: int = 2) -> int:
+    """0 for a vector operand, ``r`` for a column block (trailing axis
+    beyond the ``stack_dims`` axes of the stacked layout)."""
+    return x.shape[-1] if x.dim() > stack_dims else 0
 
 
 def ell_matvec(block: ELLBlock, x: torch.Tensor) -> torch.Tensor:
     """``y[s, r] = sum_k data[s,r,k] * x[s, col[s,r,k]]`` for stacked
-    ``x`` (S, R). Padding (data=0, col=0) is free."""
+    ``x`` (S, R), or the SpMM for an (S, R, r) block. Padding (data=0,
+    col=0) is free."""
     data = block.data
     S, R, k = data.shape
+    r = _nrhs(x)
     b = data.element_size()
     mat_bytes = float(R * k * (b + block.col.element_size()))
     trace.record_op(
-        "ell_matvec",
+        "ell_spmm" if r > 1 else "ell_matvec",
         OpCounts(
-            flops=2.0 * R * k,
-            hbm_bytes=mat_bytes + float(x.shape[-1] + R) * b,
+            flops=2.0 * R * k * max(r, 1),
+            hbm_bytes=mat_bytes + float(x.shape[1] + R) * max(r, 1) * b,
             hbm_matrix_bytes=mat_bytes,
         ),
     )
-    return (data * _gather(x, block.flat_col, data.shape)).sum(-1)
+    if not r:
+        return (data * _gather(x, block.flat_col, data.shape)).sum(-1)
+    # SpMM one slot at a time: the gathered temporary is (S, R, r), not the
+    # (S, R, k, r) of a single gather (7.5 GB in f64 at side 256, r = 8)
+    y = None
+    for j in range(k):
+        g = _gather(x, block.slot_col[j], (S, R), r)
+        d = data[:, :, j, None]
+        y = g.mul_(d) if y is None else y.addcmul_(g, d)
+    return y
 
 
 def boundary_matvec(
@@ -69,25 +103,32 @@ def boundary_matvec(
     S, B, k_ext = data_bnd.shape
     b = data_bnd.element_size()
     per_shard = B * k_ext
-    ext_len = x_ext.shape[-1]
+    ring = mat.plan.mode == "ring"
+    r = _nrhs(x_ext, 2 if ring else 1)
+    nr = max(r, 1)
+    ext_len = x_ext.shape[1] if ring else x_ext.shape[0]
     if src_elems is None:
         src_elems = min(ext_len, per_shard)
     mat_bytes = float(per_shard * (b + mat.col_ext.element_size()))
     trace.record_op(
-        "bnd_matvec",
+        "bnd_spmm" if r > 1 else "bnd_matvec",
         OpCounts(
-            flops=2.0 * per_shard,
+            flops=2.0 * per_shard * nr,
             hbm_bytes=mat_bytes
-            + float(min(int(src_elems), per_shard) * b + B * (2 * b + 4)),
+            + float(min(int(src_elems), per_shard) * nr * b + B * (2 * b * nr + 4)),
             hbm_matrix_bytes=mat_bytes,
         ),
     )
-    return (data_bnd * _gather(x_ext, mat.flat_col_ext, data_bnd.shape)).sum(-1)
+    g = _gather(x_ext, mat.flat_col_ext, data_bnd.shape, r)
+    if not r:
+        return (data_bnd * g).sum(-1)
+    return (data_bnd[..., None] * g).sum(-2)
 
 
 def _scatter_boundary(mat: DistMat, y: torch.Tensor, yb: torch.Tensor) -> torch.Tensor:
     """``y[s, bnd_rows[s, j]] += yb[s, j]`` (padding rows add exact zeros)."""
-    out = y.reshape(-1).index_add(0, mat.flat_bnd_rows, yb.reshape(-1))
+    flat = (-1,) + tuple(y.shape[2:])
+    out = y.reshape(flat).index_add(0, mat.flat_bnd_rows, yb.reshape(flat))
     return out.view(y.shape)
 
 
@@ -102,22 +143,27 @@ def _halo_exchange(x: torch.Tensor, mat: DistMat) -> torch.Tensor:
     Every shard's send selection is gathered at once; receive buffer ``k``
     of shard ``i`` is the selection shard ``i + shifts[k]`` sent, i.e. the
     gathered block shifted by ``shifts[k]`` along the shard axis, with zeros
-    where ``i + shifts[k]`` falls off the ring. Returns ``(S, sum(widths))``.
+    where ``i + shifts[k]`` falls off the ring. Returns ``(S, sum(widths))``
+    (``(S, sum(widths), r)`` for column blocks: r-wide rows, so the payload
+    scales with ``r`` over the same number of launches).
     """
     plan: HaloPlan = mat.plan
+    r = _nrhs(x)
     trace.record_op(
         "halo_exchange",
         OpCounts(
-            ici_bytes=float(plan.collective_bytes_per_shard(x.element_size())),
+            ici_bytes=float(
+                plan.collective_bytes_per_shard(x.element_size() * max(r, 1))
+            ),
             n_collectives=float(len(plan.shifts)),
         ),
     )
     S = x.shape[0]
     W = sum(plan.widths)
     if not W:
-        return x.new_zeros((S, 0))
-    sent = _gather(x, mat.flat_send, (S, mat.send_sel.shape[1]))
-    halo = x.new_zeros((S, W))
+        return x.new_zeros((S, 0) + tuple(x.shape[2:]))
+    sent = _gather(x, mat.flat_send, (S, mat.send_sel.shape[1]), r)
+    halo = x.new_zeros((S, W) + tuple(x.shape[2:]))
     off = 0
     for d, w in zip(plan.shifts, plan.widths):
         if abs(d) < S:
@@ -140,7 +186,8 @@ def halo_exchange(x: torch.Tensor, mat: DistMat) -> torch.Tensor:
 
 def gather_ext(mat: DistMat, x: torch.Tensor) -> torch.Tensor:
     """The external-vector buffer: ``(S, ext_len)`` in ring mode, the
-    gathered ``(S*R,)`` vector in allgather mode."""
+    gathered ``(S*R,)`` vector in allgather mode (``(S, ext_len, r)`` and
+    ``(S*R, r)`` for column blocks)."""
     if mat.plan.mode == "ring":
         return torch.cat([x, halo_exchange(x, mat)], dim=1)
     # allgather mode: padded-global layout owner*R + local — exactly the
@@ -150,12 +197,14 @@ def gather_ext(mat: DistMat, x: torch.Tensor) -> torch.Tensor:
             "allgather",
             OpCounts(
                 ici_bytes=float(
-                    mat.plan.collective_bytes_per_shard(x.element_size())
+                    mat.plan.collective_bytes_per_shard(
+                        x.element_size() * max(_nrhs(x), 1)
+                    )
                 ),
                 n_collectives=1.0,
             ),
         )
-        return x.reshape(-1)
+        return x.reshape((-1,) + tuple(x.shape[2:]))
 
 
 # ---------------------------------------------------------------------------
@@ -179,8 +228,8 @@ def overlap_default(on: bool):
 
 
 def spmv_shard(mat: DistMat, x: torch.Tensor, *, overlap: bool | None = None) -> torch.Tensor:
-    """``y = A @ x`` for the stacked ``(S, R)`` vector ``x``, via the
-    interior/boundary row-block split.
+    """``y = A @ x`` for the stacked ``(S, R)`` vector ``x`` (or the SpMM
+    for an ``(S, R, r)`` block), via the interior/boundary row-block split.
 
     ``overlap=True`` (ring layouts with a real exchange): the halo
     exchange, the interior matvec and the boundary scatter-add, all in the
@@ -201,7 +250,7 @@ def spmv_shard(mat: DistMat, x: torch.Tensor, *, overlap: bool | None = None) ->
     x_ext = gather_ext(mat, x)
     y = ell_matvec(mat.interior, x)
     # ring: the boundary gathers touch only the received halo buffers
-    src = x_ext.shape[-1] - x.shape[-1] if ring else None
+    src = x_ext.shape[1] - x.shape[1] if ring else None
     yb = boundary_matvec(mat, x_ext, src_elems=src)
     return _scatter_boundary(mat, y, yb)
 

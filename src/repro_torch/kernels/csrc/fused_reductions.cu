@@ -1,9 +1,10 @@
-// Fused vector kernels of the hs-CG hot path, written for Hopper (sm_90a).
+// Fused vector kernels of the CG hot paths, written for Hopper (sm_90a).
 //
 // Each kernel replaces one Pallas TPU kernel of the JAX package:
 //
 //   fr_dots_*        <- src/repro/kernels/fused_reductions.py:104 fused_dots_n
 //   fr_axpy_*        <- src/repro/kernels/fused_reductions.py:156 fused_axpy
+//   fr_axpy2_*       <- src/repro/kernels/fused_reductions.py:178 fused_axpy2
 //   fr_axpy2_dots_*  <- src/repro/kernels/fused_reductions.py:196 fused_axpy2_dots
 //
 // What bounds them on this card: bytes. They stream whole vectors and do one
@@ -166,6 +167,38 @@ axpy_kernel(const T* __restrict__ a, long long a_stride, const T* __restrict__ x
   }
 }
 
+// o1 = a1[s] * x1 + y1 ; o2 = a2[s] * x2 + y2 (the fcg/pipecg updates)
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+axpy2_kernel(const T* __restrict__ a1, long long s1, const T* __restrict__ x1,
+             const T* __restrict__ y1, const T* __restrict__ a2, long long s2,
+             const T* __restrict__ x2, const T* __restrict__ y2, T* __restrict__ o1,
+             T* __restrict__ o2, long long R) {
+  const int s = blockIdx.y;
+  const long long row = (long long)s * R;
+  const long long base = (long long)blockIdx.x * kTile + threadIdx.x;
+  const T av1 = a1[s * s1];
+  const T av2 = a2[s * s2];
+  T x1v[kItems], y1v[kItems], x2v[kItems], y2v[kItems];
+#pragma unroll
+  for (int it = 0; it < kItems; ++it) {
+    const long long i = base + (long long)it * kThreads;
+    const bool ok = i < R;
+    x1v[it] = ok ? x1[row + i] : T(0);
+    y1v[it] = ok ? y1[row + i] : T(0);
+    x2v[it] = ok ? x2[row + i] : T(0);
+    y2v[it] = ok ? y2[row + i] : T(0);
+  }
+#pragma unroll
+  for (int it = 0; it < kItems; ++it) {
+    const long long i = base + (long long)it * kThreads;
+    if (i < R) {
+      o1[row + i] = av1 * x1v[it] + y1v[it];
+      o2[row + i] = av2 * x2v[it] + y2v[it];
+    }
+  }
+}
+
 // o1 = a1[s] * x1 + y1 ; o2 = a2[s] * x2 + y2 ; partials[s][blk] = sum(o2 * o2)
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -244,6 +277,17 @@ int launch_axpy(const void* a, long long a_stride, const void* x, const void* y,
 }
 
 template <typename T>
+int launch_axpy2(const void* a1, long long s1, const void* x1, const void* y1, const void* a2,
+                 long long s2, const void* x2, const void* y2, void* o1, void* o2, long long S,
+                 long long R, void* stream) {
+  if (bad_shape(S, R)) return (int)cudaErrorInvalidValue;
+  axpy2_kernel<T><<<dim3(tiles(R), (unsigned)S), kThreads, 0, (cudaStream_t)stream>>>(
+      (const T*)a1, s1, (const T*)x1, (const T*)y1, (const T*)a2, s2, (const T*)x2,
+      (const T*)y2, (T*)o1, (T*)o2, R);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
 int launch_axpy2_dots(const void* a1, long long s1, const void* x1, const void* y1,
                       const void* a2, long long s2, const void* x2, const void* y2, void* o1,
                       void* o2, long long S, long long R, void* partials, void* out,
@@ -289,6 +333,17 @@ int fr_axpy_f32(const void* a, long long a_stride, const void* x, const void* y,
 int fr_axpy_f64(const void* a, long long a_stride, const void* x, const void* y, void* o,
                 long long S, long long R, void* stream) {
   return launch_axpy<double>(a, a_stride, x, y, o, S, R, stream);
+}
+
+int fr_axpy2_f32(const void* a1, long long s1, const void* x1, const void* y1, const void* a2,
+                 long long s2, const void* x2, const void* y2, void* o1, void* o2, long long S,
+                 long long R, void* stream) {
+  return launch_axpy2<float>(a1, s1, x1, y1, a2, s2, x2, y2, o1, o2, S, R, stream);
+}
+int fr_axpy2_f64(const void* a1, long long s1, const void* x1, const void* y1, const void* a2,
+                 long long s2, const void* x2, const void* y2, void* o1, void* o2, long long S,
+                 long long R, void* stream) {
+  return launch_axpy2<double>(a1, s1, x1, y1, a2, s2, x2, y2, o1, o2, S, R, stream);
 }
 
 // partials holds S * ceil(R / tile) elements; out is (S, 1).

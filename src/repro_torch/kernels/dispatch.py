@@ -135,6 +135,15 @@ def _require_vec(op: str, *ts):
             )
 
 
+def _require_block(op: str, *ts):
+    for t in ts:
+        if t.dim() not in (2, 3):
+            raise ValueError(
+                f"{op} expects (S, R, r) stacked shard blocks or one (n, r) "
+                f"block, got shape {tuple(t.shape)}"
+            )
+
+
 # executed-counts formulas shared with the other instrumented layers
 _axpy_counts = trace.streamed_axpy_counts
 
@@ -174,6 +183,18 @@ class OpSet:
         _record("axpy", _axpy_counts(x.shape[-1], x.element_size()))
         return fr.fused_axpy(a, x, y)
 
+    def fused_axpy2(self, a1, x1, y1, a2, x2, y2):
+        """``(a1*x1 + y1, a2*x2 + y2)`` — two independent axpys, ONE pass.
+
+        The two updates may not feed each other (they are evaluated from
+        the inputs as given). Counts as a single HBM sweep of 6R streamed
+        elements / 4R flops per shard.
+        """
+        _require_vec("fused_axpy2", x1, y1, x2, y2)
+        self._check("fused_axpy2", x1)
+        _record("fused_axpy2", _axpy_counts(x1.shape[-1], x1.element_size(), 2))
+        return fr.fused_axpy2(a1, x1, y1, a2, x2, y2)
+
     def fused_axpy2_dots(self, a1, x1, y1, a2, x2, y2):
         """``(a1*x1+y1, a2*x2+y2, [o2·o2])`` in ONE pass.
 
@@ -201,6 +222,42 @@ class OpSet:
         self._check("fused_dots_n", pairs[0][0])
         _record("fused_dots_n", trace.local_dots_counts(pairs))
         return fr.fused_dots_n(pairs)
+
+    # -- multi-RHS block ops (1 HBM sweep each) -----------------------------
+
+    def block_gram(self, pairs):
+        """Local Gram blocks ``[Xᵀ @ Y, ...]`` for stacked ``(S, R, r)``
+        pairs, ONE pass: one ``(S, r, r)`` per-shard partial per pair.
+
+        Each distinct operand block is streamed once. Results are
+        per-shard partials — callers pack them into one all-reduce
+        (``fused_blocks``). Order-sensitive (XᵀY != YᵀX).
+        """
+        _require_block("block_gram", *[a for p in pairs for a in p])
+        self._check("block_gram", pairs[0][0])
+        _record("block_gram", trace.block_gram_counts(pairs))
+        return fr.block_gram(pairs)
+
+    def block_update(self, m, x, y, mask=None):
+        """``y * mask + x @ m`` for ``(S, R, r)`` blocks and an ``(r, r)``
+        coefficient block; ``mask`` is an optional ``(r,)`` column scale
+        (the deflation mask) folded into the same pass. One sweep: read x,
+        y; write the result."""
+        _require_block("block_update", x, y)
+        self._check("block_update", x)
+        n, r = x.shape[-2:]
+        _record("block_update", trace.block_update_counts(n, r, x.element_size()))
+        return fr.block_update(m, x, y, mask)
+
+    def block_update2(self, a1, x1, y1, a2, x2, y2):
+        """``(y1 + x1 @ a1, y2 + x2 @ a2)`` — the block-CG X/R update pair
+        in ONE pass over all four ``(S, R, r)`` blocks."""
+        _require_block("block_update2", x1, y1, x2, y2)
+        self._check("block_update2", x1)
+        n, r = x1.shape[-2:]
+        _record("block_update2",
+                trace.block_update_counts(n, r, x1.element_size(), terms=2))
+        return fr.block_update2(a1, x1, y1, a2, x2, y2)
 
 
 def ops_for(kernels: str | None = None) -> OpSet:

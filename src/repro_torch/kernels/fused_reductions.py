@@ -1,12 +1,15 @@
-"""Launch wrappers for the hand-written Hopper kernels of the hs-CG hot path.
+"""Launch wrappers for the hand-written Hopper kernels of the CG hot paths.
 
-The kernels live in ``csrc/fused_reductions.cu`` (CUDA C++ for ``sm_90a``,
-built by ``kernels/_build.py`` and called through ctypes). Each wrapper:
+The kernels live in ``csrc/fused_reductions.cu`` (the vector kernels of hs,
+fcg and pipecg) and ``csrc/block_reductions.cu`` (the block-HS kernels),
+CUDA C++ for ``sm_90a``, built by ``kernels/_build.py`` and called through
+ctypes. Each wrapper:
 
 * takes vectors in the stacked ``(S, R)`` layout (S shards on one device)
-  or as one ``(n,)`` vector, and returns **per-shard partials** for its
-  reductions — ``(S, k)`` (``(k,)`` for a vector) — so the all-reduce
-  stays an explicit, recorded step of the caller;
+  or as one ``(n,)`` vector — column blocks as ``(S, R, r)`` or one
+  ``(n, r)`` block — and returns **per-shard partials** for its
+  reductions — ``(S, k)`` (``(k,)`` for a vector), ``(S, r, r)`` Grams —
+  so the all-reduce stays an explicit, recorded step of the caller;
 * on a CUDA tensor, launches its kernel on the current stream and checks
   the launch; on a CPU tensor, runs the plain version from
   ``kernels/ref.py`` — the only reason it ever does so. No flag, setting
@@ -14,14 +17,16 @@ built by ``kernels/_build.py`` and called through ctypes). Each wrapper:
 * counts its launches in ``<wrapper>.launches`` (a plain int, incremented
   where the kernel is launched and nowhere else; :func:`reset_launches`).
 
-Scalars (alpha, beta) may be 0-d or ``(S,)`` tensors; on the card the
-kernels read them through a device pointer, so no scalar ever crosses to
-the host here.
+Scalars (alpha, beta) may be 0-d or ``(S,)`` tensors, coefficient blocks
+are ``(r, r)``; on the card the kernels read them through a device pointer, so no scalar or block ever crosses to the host here. A
+non-contiguous streamed operand on the card raises (no quiet copy); the
+small coefficients are made contiguous.
 
 :data:`KERNELS` describes each kernel: the TPU kernel it replaces, what
 bounds it on the card (bytes: these are streaming passes with one or two
-flops per element read and no tensor-core work), its source file and its
-plain version.
+flops per element read — 2r for the block kernels, still far below the
+FP64 ridge at the path's r — and no tensor-core work), its source file
+and its plain version.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ import torch
 from repro_torch.kernels import _build, ref
 
 SOURCE = "src/repro_torch/kernels/csrc/fused_reductions.cu"
+BLOCK_SOURCE = "src/repro_torch/kernels/csrc/block_reductions.cu"
 MAX_OPERANDS = 4
 MAX_PRODUCTS = 6
 
@@ -42,8 +48,19 @@ _SIGNATURES = {
     **{f"fr_dots_{t}": (_P, _P, _P, _P, _I, _I, _I, _L, _L, _P, _P, _P)
        for t in ("f32", "f64")},
     **{f"fr_axpy_{t}": (_P, _L, _P, _P, _P, _L, _L, _P) for t in ("f32", "f64")},
+    **{f"fr_axpy2_{t}": (_P, _L, _P, _P, _P, _L, _P, _P, _P, _P, _L, _L, _P)
+       for t in ("f32", "f64")},
     **{f"fr_axpy2_dots_{t}": (_P, _L, _P, _P, _P, _L, _P, _P, _P, _P, _L, _L,
                               _P, _P, _P)
+       for t in ("f32", "f64")},
+}
+_BLOCK_SIGNATURES = {
+    "br_gram_nblk": (_L, _L, _I, _I, _I),
+    **{f"br_gram_{t}": (_P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _P, _P, _P)
+       for t in ("f32", "f64")},
+    **{f"br_update_{t}": (_P, _P, _P, _P, _P, _L, _L, _I, _P)
+       for t in ("f32", "f64")},
+    **{f"br_update2_{t}": (_P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _I, _P)
        for t in ("f32", "f64")},
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
@@ -51,6 +68,10 @@ _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 def _lib():
     return _build.library("fused_reductions", _SIGNATURES)
+
+
+def _block_lib():
+    return _build.library("block_reductions", _BLOCK_SIGNATURES)
 
 
 def _as_stack(name: str, ts) -> tuple[int, int]:
@@ -76,6 +97,39 @@ def _as_stack(name: str, ts) -> tuple[int, int]:
     return int(S), int(R)
 
 
+def _as_block_stack(name: str, ts) -> tuple[int, int, int]:
+    """Validate column-block operands; return the ``(S, R, r)`` they share."""
+    t0 = ts[0]
+    if t0.dim() not in (2, 3):
+        raise ValueError(
+            f"{name} expects (S, R, r) stacked shard blocks or one (n, r) "
+            f"block, got shape {tuple(t0.shape)}"
+        )
+    for t in ts:
+        if t.shape != t0.shape:
+            raise ValueError(f"{name}: shape mismatch {tuple(t.shape)} vs {tuple(t0.shape)}")
+        if t.dtype != t0.dtype or t.device != t0.device:
+            raise ValueError(f"{name}: operands differ in dtype or device")
+        if t0.device.type == "cuda" and not t.is_contiguous():
+            raise ValueError(f"{name}: the kernel takes contiguous operands")
+    if t0.device.type == "cuda" and t0.dtype not in _SUFFIX:
+        raise TypeError(f"{name}: the kernel takes float32/float64, got {t0.dtype}")
+    S, R, r = (1, *t0.shape) if t0.dim() == 2 else tuple(t0.shape)
+    return int(S), int(R), int(r)
+
+
+def _block_arg(name: str, m, like: torch.Tensor, r: int) -> torch.Tensor:
+    """The ``(r, r)`` coefficient block, shared by every shard, as a
+    contiguous device tensor for the kernel."""
+    if not isinstance(m, torch.Tensor):
+        m = torch.tensor(m, dtype=like.dtype, device=like.device)
+    if m.device != like.device:
+        raise ValueError(f"{name}: coefficients on {m.device}, blocks on {like.device}")
+    if tuple(m.shape) != (r, r):
+        raise ValueError(f"{name}: coefficients must be ({r}, {r}), got {tuple(m.shape)}")
+    return m.to(like.dtype).contiguous()
+
+
 def _scalar_arg(name: str, a, like: torch.Tensor, S: int):
     """A device scalar for the kernel: ``(tensor, shard stride)``."""
     if not isinstance(a, torch.Tensor):
@@ -99,9 +153,7 @@ def _tiles(lib, R: int) -> int:
     return -(-R // tile)
 
 
-def dedup_pairs(pairs):
-    """Unique operands (by identity), unique products, and the map from
-    output slot to product — ``repro.kernels.fused_reductions._dedup_pairs``."""
+def _dedup(pairs, ordered: bool):
     uniq: list = []
     ids: dict[int, int] = {}
 
@@ -115,12 +167,43 @@ def dedup_pairs(pairs):
     prod_ids: dict[tuple[int, int], int] = {}
     prods = []
     for x, y in pairs:
-        key = tuple(sorted((idx(x), idx(y))))
+        key = (idx(x), idx(y))
+        if not ordered:
+            key = tuple(sorted(key))
         if key not in prod_ids:
             prod_ids[key] = len(prods)
             prods.append(key)
         out_map.append(prod_ids[key])
     return uniq, tuple(prods), tuple(out_map)
+
+
+def dedup_pairs(pairs):
+    """Unique operands (by identity), unique products, and the map from
+    output slot to product — ``repro.kernels.fused_reductions._dedup_pairs``."""
+    return _dedup(pairs, ordered=False)
+
+
+def dedup_pairs_ordered(pairs):
+    """Like :func:`dedup_pairs` but ORDER-SENSITIVE — XᵀY is the transpose
+    of YᵀX, not the same product — as
+    ``repro.kernels.fused_reductions._dedup_pairs_ordered``."""
+    return _dedup(pairs, ordered=True)
+
+
+def _check_limits(name: str, uniq, prods):
+    if len(uniq) > MAX_OPERANDS or len(prods) > MAX_PRODUCTS:
+        raise ValueError(
+            f"{name} takes at most {MAX_OPERANDS} distinct operands and "
+            f"{MAX_PRODUCTS} distinct products; got {len(uniq)} and {len(prods)}"
+        )
+
+
+def _pack_products(prods) -> int:
+    """Products packed 4 bits each: operand indices (left << 2) | right."""
+    code = 0
+    for j, (a, b) in enumerate(prods):
+        code |= ((a << 2) | b) << (4 * j)
+    return code
 
 
 def fused_dots_n(pairs) -> torch.Tensor:
@@ -133,20 +216,14 @@ def fused_dots_n(pairs) -> torch.Tensor:
     distinct products (``ValueError`` beyond).
     """
     uniq, prods, out_map = dedup_pairs(pairs)
-    if len(uniq) > MAX_OPERANDS or len(prods) > MAX_PRODUCTS:
-        raise ValueError(
-            f"fused_dots_n takes at most {MAX_OPERANDS} distinct operands and "
-            f"{MAX_PRODUCTS} distinct products; got {len(uniq)} and {len(prods)}"
-        )
+    _check_limits("fused_dots_n", uniq, prods)
     S, R = _as_stack("fused_dots_n", uniq)
     x0 = uniq[0]
     if x0.device.type != "cuda":
         return ref.fused_dots_n_ref(pairs)
     lib = _lib()
     k = len(prods)
-    code = 0
-    for j, (a, b) in enumerate(prods):
-        code |= ((a << 2) | b) << (4 * j)
+    code = _pack_products(prods)
     ptrs = [u.data_ptr() for u in uniq] + [None] * (MAX_OPERANDS - len(uniq))
     partials = torch.empty(S * _tiles(lib, R) * MAX_PRODUCTS, dtype=x0.dtype,
                            device=x0.device)
@@ -175,6 +252,26 @@ def fused_axpy(a, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return o
 
 
+def fused_axpy2(a1, x1, y1, a2, x2, y2):
+    """``(a1*x1 + y1, a2*x2 + y2)`` in ONE pass over the four vectors — the
+    fcg/pipecg updates. The two updates are evaluated from the inputs as
+    given (neither feeds the other)."""
+    S, R = _as_stack("fused_axpy2", (x1, y1, x2, y2))
+    if x1.device.type != "cuda":
+        return ref.fused_axpy2_ref(a1, x1, y1, a2, x2, y2)
+    lib = _lib()
+    av1, s1 = _scalar_arg("fused_axpy2", a1, x1, S)
+    av2, s2 = _scalar_arg("fused_axpy2", a2, x1, S)
+    o1 = torch.empty_like(x1)
+    o2 = torch.empty_like(x1)
+    fn = getattr(lib, f"fr_axpy2_{_SUFFIX[x1.dtype]}")
+    _build.check(fn(av1.data_ptr(), s1, x1.data_ptr(), y1.data_ptr(),
+                    av2.data_ptr(), s2, x2.data_ptr(), y2.data_ptr(),
+                    o1.data_ptr(), o2.data_ptr(), S, R, _stream(x1)), "fused_axpy2")
+    fused_axpy2.launches += 1
+    return o1, o2
+
+
 def fused_axpy2_dots(a1, x1, y1, a2, x2, y2):
     """``(a1*x1 + y1, a2*x2 + y2, partial[o2 . o2])`` in ONE pass.
 
@@ -201,9 +298,84 @@ def fused_axpy2_dots(a1, x1, y1, a2, x2, y2):
     return o1, o2, (d if x1.dim() == 2 else d[0])
 
 
+def block_gram(pairs) -> list:
+    """Local Gram blocks ``[Xᵀ @ Y for (X, Y) in pairs]`` in ONE pass.
+
+    Returns one ``(S, r, r)`` per-shard partial per pair (``(r, r)`` for
+    one ``(n, r)`` block). Operands shared between pairs (by identity) are
+    read once; identical ORDERED pairs are multiplied once. At most
+    :data:`MAX_OPERANDS` distinct operands and :data:`MAX_PRODUCTS`
+    distinct products (``ValueError`` beyond); any ``r``.
+    """
+    uniq, prods, out_map = dedup_pairs_ordered(pairs)
+    _check_limits("block_gram", uniq, prods)
+    S, R, r = _as_block_stack("block_gram", uniq)
+    x0 = uniq[0]
+    if x0.device.type != "cuda":
+        return ref.block_gram_ref(pairs)
+    lib = _block_lib()
+    k = len(prods)
+    nblk = lib.br_gram_nblk(S, R, r, len(uniq), x0.element_size())
+    ptrs = [u.data_ptr() for u in uniq] + [None] * (MAX_OPERANDS - len(uniq))
+    partials = torch.empty(S * nblk * k * r * r, dtype=x0.dtype, device=x0.device)
+    out = torch.empty((S, k, r, r), dtype=x0.dtype, device=x0.device)
+    fn = getattr(lib, f"br_gram_{_SUFFIX[x0.dtype]}")
+    _build.check(fn(*ptrs, len(uniq), k, _pack_products(prods), S, R, r,
+                    partials.data_ptr(), out.data_ptr(), _stream(x0)), "block_gram")
+    block_gram.launches += 1
+    grams = [out[:, m] for m in out_map]
+    return grams if x0.dim() == 3 else [g[0] for g in grams]
+
+
+def block_update(m, x: torch.Tensor, y: torch.Tensor, mask=None) -> torch.Tensor:
+    """``y * mask + x @ m`` in ONE pass: ``m`` an ``(r, r)`` coefficient
+    block, ``mask`` an optional ``(r,)`` column scale (the block-CG
+    deflation mask) folded into the same pass."""
+    S, R, r = _as_block_stack("block_update", (x, y))
+    if x.device.type != "cuda":
+        return ref.block_update_ref(m, x, y, mask)
+    lib = _block_lib()
+    mv = _block_arg("block_update", m, x, r)
+    kv = None
+    if mask is not None:
+        kv = torch.as_tensor(mask, device=x.device).to(x.dtype).contiguous()
+        if tuple(kv.shape) != (r,):
+            raise ValueError(f"block_update: mask must be ({r},), got {tuple(kv.shape)}")
+    o = torch.empty_like(x)
+    fn = getattr(lib, f"br_update_{_SUFFIX[x.dtype]}")
+    _build.check(fn(mv.data_ptr(), None if kv is None else kv.data_ptr(),
+                    x.data_ptr(), y.data_ptr(), o.data_ptr(), S, R, r, _stream(x)),
+                 "block_update")
+    block_update.launches += 1
+    return o
+
+
+def block_update2(a1, x1, y1, a2, x2, y2):
+    """``(y1 + x1 @ a1, y2 + x2 @ a2)`` in ONE pass over the four blocks —
+    the block-CG X/R update (``a2 = -alpha`` folds the sign in)."""
+    S, R, r = _as_block_stack("block_update2", (x1, y1, x2, y2))
+    if x1.device.type != "cuda":
+        return ref.block_update2_ref(a1, x1, y1, a2, x2, y2)
+    lib = _block_lib()
+    av1 = _block_arg("block_update2", a1, x1, r)
+    av2 = _block_arg("block_update2", a2, x1, r)
+    o1 = torch.empty_like(x1)
+    o2 = torch.empty_like(x1)
+    fn = getattr(lib, f"br_update2_{_SUFFIX[x1.dtype]}")
+    _build.check(fn(av1.data_ptr(), x1.data_ptr(), y1.data_ptr(), av2.data_ptr(),
+                    x2.data_ptr(), y2.data_ptr(), o1.data_ptr(), o2.data_ptr(),
+                    S, R, r, _stream(x1)), "block_update2")
+    block_update2.launches += 1
+    return o1, o2
+
+
 fused_dots_n.launches = 0
 fused_axpy.launches = 0
+fused_axpy2.launches = 0
 fused_axpy2_dots.launches = 0
+block_gram.launches = 0
+block_update.launches = 0
+block_update2.launches = 0
 
 #: The kernels of this module: what each replaces and what bounds it.
 KERNELS = {
@@ -217,10 +389,30 @@ KERNELS = {
         replaces="src/repro/kernels/fused_reductions.py:156",
         bound_by="bytes",  # 2 vectors read, 1 written
     ),
+    "fused_axpy2": dict(
+        wrapper=fused_axpy2, plain=ref.fused_axpy2_ref, source=SOURCE,
+        replaces="src/repro/kernels/fused_reductions.py:178",
+        bound_by="bytes",  # 4 vectors read, 2 written
+    ),
     "fused_axpy2_dots": dict(
         wrapper=fused_axpy2_dots, plain=ref.fused_axpy2_dots_ref, source=SOURCE,
         replaces="src/repro/kernels/fused_reductions.py:196",
         bound_by="bytes",  # 4 vectors read, 2 written
+    ),
+    "block_gram": dict(
+        wrapper=block_gram, plain=ref.block_gram_ref, source=BLOCK_SOURCE,
+        replaces="src/repro/kernels/fused_reductions.py:287",
+        bound_by="bytes",  # distinct (R, r) operands read once; 2r flops/element
+    ),
+    "block_update": dict(
+        wrapper=block_update, plain=ref.block_update_ref, source=BLOCK_SOURCE,
+        replaces="src/repro/kernels/fused_reductions.py:330",
+        bound_by="bytes",  # 2 blocks read, 1 written; 2r flops/element
+    ),
+    "block_update2": dict(
+        wrapper=block_update2, plain=ref.block_update2_ref, source=BLOCK_SOURCE,
+        replaces="src/repro/kernels/fused_reductions.py:361",
+        bound_by="bytes",  # 4 blocks read, 2 written
     ),
 }
 

@@ -312,47 +312,63 @@ def test_config_surface_matches_reference():
     args = parse_args(cfg.to_argv() + ["--side", "9"])
     assert api.SolverConfig.from_args(args) == cfg
     assert api.ProblemSpec.from_args(args) == api.ProblemSpec(side=9)
-    for kw, item in ((dict(variant="fcg"), "item 6"), (dict(fmt="hyb"), "item 8"),
-                     (dict(nrhs=4), "item 7"), (dict(amg=True), "item 12")):
+    for kw, item in ((dict(variant="sstep"), "item 9"), (dict(fmt="hyb"), "item 8"),
+                     (dict(grid="2x2"), "item 10"), (dict(amg=True), "item 12")):
         with pytest.raises(NotImplementedError, match=item):
             api.solve(api.ProblemSpec(side=6), api.SolverConfig(**kw), device="cpu",
                       verbose=False)
 
 
-def test_zero_iteration_ledger_charges_no_phantom_iteration():
+def test_zero_iteration_ledger_equals_reference():
     """A right-hand side of zero converges before the first iteration. The
-    JAX package still replays its traced loop body once (``max(iters, 1)``
-    in ``ledger_from_trace``); the port records only what ran, so its ledger
-    is the setup alone — exactly one iteration's counts below the
-    reference's (ROADMAP.md, "Faults found in the port"). In-process, so
-    both run in float32."""
+    JAX package still charges its once-traced loop body one time
+    (``max(iters, 1)`` in ``ledger_from_trace``); the port runs the body
+    once with its outputs thrown away, so the two ledgers are equal — for
+    hs, fcg, pipecg and block-HS — while ``iters`` and ``x`` are those of a
+    loop that never ran. In-process, so both run in float32."""
+    from repro.core.cg import make_block_solver as jmake_block_solver
     from repro.core.cg import make_solver as jmake_solver
+    from repro.core.partition import pad_block as jpad_block
     from repro.core.partition import pad_vector as jpad, partition_csr as jpartition
     from repro.core.spmv import shard_matrix, shard_vector
     from repro.energy import trace as jtrace
+    from repro.energy.accounting import CostModel as JCostModel
     from repro.launch.mesh import make_solver_mesh
     from repro.matrices.poisson import cube, poisson_scipy
     from repro_torch.core.cg import solver_handle
-    from repro_torch.core.partition import pad_vector, partition_csr
+    from repro_torch.core.partition import pad_block, pad_vector, partition_csr
     from repro_torch.energy import trace
 
     a = poisson_scipy(cube(6))
-    b = np.zeros(a.shape[0], np.float32)
+    n = a.shape[0]
     mesh = make_solver_mesh(1)
     jm = shard_matrix(mesh, jpartition(a, 1, dtype=np.float32))
-    with jtrace.capture() as jtr:
-        jres = jmake_solver(mesh, jm)(shard_vector(mesh, jpad(b, jm)),
-                                      shard_vector(mesh, jpad(b, jm)))
-    assert int(jres.iters) == 0
-    ref_total = jtr.total(jtrace.SETUP) + jtr.total(jtrace.ITERATION)
-
     m = partition_csr(a, 1, dtype=np.float32)
-    bt = torch.from_numpy(pad_vector(b, m))
-    h = solver_handle(m, device="cpu", cache={})
-    assert h.warm(bt, torch.zeros_like(bt)).iters == 0
-    assert trace.ITERATION not in h.trace.sections
-    got = h.trace.total(trace.SETUP)
-    one_iter = jtr.total(jtrace.ITERATION)
-    assert one_iter.flops > 0
-    assert (got.flops, got.hbm_bytes) == (ref_total.flops - one_iter.flops,
-                                           ref_total.hbm_bytes - one_iter.hbm_bytes)
+    for variant, nrhs in (("hs", 1), ("fcg", 1), ("pipecg", 1), ("hs", 3)):
+        if nrhs > 1:
+            b = np.zeros((n, nrhs), np.float32)
+            jb, bp = jpad_block(b, jm), pad_block(b, m)
+            jsolve = jmake_block_solver(mesh, jm)
+        else:
+            b = np.zeros(n, np.float32)
+            jb, bp = jpad(b, jm), pad_vector(b, m)
+            jsolve = jmake_solver(mesh, jm, variant=variant)
+        with jtrace.capture() as jtr:
+            jres = jsolve(shard_vector(mesh, jb), shard_vector(mesh, jb))
+        jiters = int(jres.iters)
+        assert jiters == (0 if variant == "hs" else 1)  # fcg/pipecg count from 1
+        assert jtr.total(jtrace.ITERATION).flops > 0  # one traced body, charged once
+        jled = jtrace.ledger_from_trace(jtr, iters=jiters, n_shards=1, cost=JCostModel(),
+                                        idle_s=0.01)
+
+        bt = torch.from_numpy(bp)
+        x0 = torch.zeros_like(bt)
+        h = solver_handle(m, nrhs=nrhs, variant=variant, device="cpu", cache={})
+        res = h.warm(bt, x0)
+        assert res.iters == jiters
+        assert torch.equal(res.x, x0)
+        led = trace.ledger_from_trace(h.trace, iters=res.iters, n_shards=1,
+                                      cost=_tpu_cost(), idle_s=0.01)
+        _assert_close_tree({k: led[k] for k in ("regions", "totals")},
+                           {k: jled[k] for k in ("regions", "totals")},
+                           f"{variant}/{nrhs}")
