@@ -30,10 +30,26 @@ CUDA card with sm_90a). It
    with the same checks per column, each kernel's launch count against
    the count its iterations imply (the formula is printed), and the block
    path's ``per_solve_wall_s`` beside hs's wall;
-7. profiles 20 iterations of hs, fcg, pipecg and block-HS with
-   ``torch.profiler``: device time per kernel and the device's busy share
-   of the wall time;
-8. prints one JSON line describing every kernel (``launches`` summed over
+7. the interior formats, on the SuiteSparse analogs at the paper's row
+   counts (``scale=1.0``) over 4 stacked shards in float64:
+
+   * ``boneS10`` with ``--format auto``, which must resolve BCSR: the two
+     BCSR kernels held against their plain versions at its shape (r = 1
+     and r = 8) and at ragged ones, and timed, with cuSPARSE's BSR product
+     as the library yardstick; ``op="spmv"`` against scipy; hs through
+     ``api.solve`` (``b = ones = A @ 1``: one iteration on both legs); hs
+     with a seeded right-hand side through the session's solver handle;
+     block-HS with ``nrhs=8`` — each with its launch counts;
+   * ``G3_circuit`` with ``--format auto``, which must resolve HYB: hs
+     with a seeded right-hand side, and two SpMVs that must give the same
+     bits (the HYB tail is added without atomics);
+   * poisson7 at side 256 with ``--format bcsr --block 4``: hs within one
+     iteration of the ELL count of step 4;
+8. profiles 20 iterations of hs, fcg, pipecg and block-HS with
+   ``torch.profiler`` — and hs on BCSR (poisson7, boneS10), block-HS on
+   BCSR (boneS10) and hs on HYB (G3_circuit): device time per kernel and
+   the device's busy share of the wall time;
+9. prints one JSON line describing every kernel (``launches`` summed over
    the solve paths), then, last, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script exits non-zero without the last
@@ -57,6 +73,7 @@ SIDE = 256
 SHARDS = 4
 NRHS = 8  # the block path's right-hand sides (benchmarks/multirhs_scaling.py)
 MAXITER = 1000
+BLOCK = 4  # the BCSR tile of the format paths (the CLI's default --block)
 R_MAIN = SIDE ** 3 // SHARDS  # per-shard length on the main path
 R_RAGGED = R_MAIN - 3
 # NVIDIA H100 SXM data sheet (dense, no sparsity).
@@ -76,6 +93,33 @@ def smi(fields: str) -> str:
 def check(cond: bool, msg: str):
     if not cond:
         raise AssertionError(msg)
+
+
+def kernel_modules():
+    from repro_torch.kernels import fused_reductions as fr
+    from repro_torch.kernels import spmv_bcsr as sb
+
+    return fr, sb
+
+
+def all_kernels() -> dict:
+    """Every hand-written kernel of the port: name -> its description."""
+    out = {}
+    for m in kernel_modules():
+        out.update(m.KERNELS)
+    return out
+
+
+def reset_launches():
+    for m in kernel_modules():
+        m.reset_launches()
+
+
+def launch_counts() -> dict:
+    out = {}
+    for m in kernel_modules():
+        out.update(m.launches())
+    return out
 
 
 def time_ms(fn, rounds: int = 7, calls: int = 20) -> float:
@@ -202,15 +246,14 @@ def time_row(name, work, kern, plain, lib, abs_err, tname):
     """Time a kernel, its plain version and the library call; the bound is
     the larger of its bytes over the memory rate and its flops over the
     peak rate."""
-    from repro_torch.kernels import fused_reductions as fr
-
+    desc = all_kernels()[name]
     nbytes, flops = work
     bound = max(nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[tname]) * 1e3
     row = dict(
-        name=name, route="cuda", source=fr.KERNELS[name]["source"],
-        replaces=fr.KERNELS[name]["replaces"], max_abs_err=abs_err,
+        name=name, route="cuda", source=desc["source"],
+        replaces=desc["replaces"], max_abs_err=abs_err,
         ms=time_ms(kern), plain_ms=time_ms(plain),
-        bound_ms=bound, bound_by=fr.KERNELS[name]["bound_by"],
+        bound_ms=bound, bound_by=desc["bound_by"],
         library_ms=time_ms(lib) if lib is not None else None,
     )
     print(f"time {name:16s} kernel {row['ms']:.4f} ms  bound {bound:.4f} ms "
@@ -326,11 +369,9 @@ def solve_path(tag, api, spec, config, sess, launches, expected):
     Adds the counts to ``launches`` and returns the report."""
     import numpy as np
 
-    from repro_torch.kernels import fused_reductions as fr
-
-    fr.reset_launches()
+    reset_launches()
     rep = api.solve(spec, config, session=sess)
-    got = fr.launches()
+    got = launch_counts()
     a = sess.a
     for label, s in rep.summary.items():
         entry = rep.solvers[label]
@@ -365,10 +406,13 @@ def solve_path(tag, api, spec, config, sess, launches, expected):
     return rep
 
 
-def profile_phase(sess, dev, variant: str = "hs", nrhs: int = 1, iters: int = 20):
+def profile_phase(sess, dev, variant: str = "hs", nrhs: int = 1, iters: int = 20,
+                  fmt: str = "ell", seeded: bool = False):
     """Where an iteration's time goes: ``iters`` iterations of a path's
-    solver under ``torch.profiler``; prints device time per kernel name
-    (per iteration) and the device's busy share of the wall time."""
+    solver on the ``fmt`` partition under ``torch.profiler``; prints device
+    time per kernel name (per iteration) and the device's busy share of the
+    wall time. ``seeded`` solves for a seeded random right-hand side (the
+    SuiteSparse analogs' ``b = ones`` is ``A @ 1``, solved in one step)."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -377,14 +421,18 @@ def profile_phase(sess, dev, variant: str = "hs", nrhs: int = 1, iters: int = 20
     from repro_torch.core.cg import default_rhs_block, make_block_solver, make_solver
     from repro_torch.core.partition import pad_block, pad_vector
 
-    mat = sess.matrix()
+    mat = sess.matrix(fmt, BLOCK)
+    rng = np.random.default_rng(0)
     # a tolerance far below reach: exactly `iters` iterations run
     if nrhs > 1:
         solve = make_block_solver(mat, tol=1e-200, maxiter=iters, device=dev)
-        b = torch.from_numpy(pad_block(default_rhs_block(sess.n, nrhs), mat)).to(dev)
+        B = (rng.standard_normal((sess.n, nrhs)) if seeded
+             else default_rhs_block(sess.n, nrhs))
+        b = torch.from_numpy(pad_block(B, mat)).to(dev)
     else:
         solve = make_solver(mat, variant=variant, tol=1e-200, maxiter=iters, device=dev)
-        b = torch.from_numpy(pad_vector(np.ones(sess.n), mat)).to(dev)
+        bv = rng.standard_normal(sess.n) if seeded else np.ones(sess.n)
+        b = torch.from_numpy(pad_vector(bv, mat)).to(dev)
     x0 = torch.zeros_like(b)
     solve(b, x0)
     torch.cuda.synchronize()
@@ -403,12 +451,276 @@ def profile_phase(sess, dev, variant: str = "hs", nrhs: int = 1, iters: int = 20
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy_us = sum(t for _, t, _ in rows)
     label = f"{variant} r={nrhs}" if nrhs > 1 else variant
+    label += f" [{sess.key[0]}, {mat.fmt}]"
     print(f"profile: {iters} {label} loop iterations, wall {wall * 1e3 / iters:.3f} ms/iter, "
           f"device busy {busy_us / 1e3 / iters:.3f} ms/iter "
           f"({100 * busy_us / 1e6 / wall:.1f}% of wall)", flush=True)
     for key, t, count in sorted(rows, key=lambda r: -r[1])[:12]:
         print(f"  {t / 1e3 / iters:8.4f} ms/iter  {count / iters:5.1f} calls/iter  "
               f"{key[:90]}", flush=True)
+
+
+def random_bcsr(dev, b, bpr, R, dtype, seed, S=SHARDS):
+    """Seeded uniform-layout BCSR tiles with a ragged R and padding tiles
+    (zero, block column 0) past a random count of each block-row."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    NB = -(-R // b)
+    blocks = torch.randn(S, NB * bpr, b, b, dtype=dtype, device=dev, generator=g)
+    bcol = torch.randint(0, NB, (S, NB * bpr), device=dev, generator=g, dtype=torch.int32)
+    used = torch.randint(1, bpr + 1, (S, NB, 1), device=dev, generator=g)
+    pad = (torch.arange(bpr, device=dev) >= used).reshape(S, NB * bpr)
+    blocks[pad] = 0
+    bcol[pad] = 0
+    return blocks, bcol, NB
+
+
+def bsr_library(blocks, bcol, n_brows, bpr, x):
+    """The library yardstick of the BCSR kernels, never on the port's path:
+    one ``torch.sparse_bsr_tensor`` (cuSPARSE) product over the S shards'
+    tiles held block-diagonally (all-zero tiles dropped), times ``x``
+    zero-padded to whole tiles. Returns ``(call, note)``; ``call`` is None,
+    and the note holds the error, where the card's torch refuses it."""
+    import torch
+
+    S, _, br, bc = blocks.shape
+    R = x.shape[1]
+    n_bcols = -(-R // bc)
+    try:
+        keep = blocks.reshape(S * n_brows * bpr, -1).ne(0).any(-1)
+        crow = torch.zeros(S * n_brows + 1, dtype=torch.int64, device=blocks.device)
+        crow[1:] = keep.view(S * n_brows, bpr).sum(1).cumsum(0)
+        offs = torch.arange(S, device=blocks.device)[:, None] * n_bcols
+        cols = (bcol.long() + offs).reshape(-1)[keep]
+        A = torch.sparse_bsr_tensor(crow, cols, blocks.reshape(-1, br, bc)[keep],
+                                    size=(S * n_brows * br, S * n_bcols * bc))
+        xl = x.new_zeros((S, n_bcols * bc) + tuple(x.shape[2:]))
+        xl[:, :R] = x
+        xl = xl.reshape((S * n_bcols * bc,) + tuple(x.shape[2:]))
+        call = lambda: A @ xl
+        call()
+        torch.cuda.synchronize()
+        return call, "torch.sparse_bsr_tensor @ x (cuSPARSE)"
+    except Exception as e:  # the yardstick only; the port never calls it
+        return None, f"none ({type(e).__name__}: {str(e).splitlines()[0][:160]})"
+
+
+def bcsr_kernel_phase(dev, mat):
+    """The BCSR kernels against their plain versions, in float64 and
+    float32: at the path's shape (the tiles of ``mat``, the boneS10 BCSR
+    interior; r = 1 and r = NRHS) and at ragged ones (random tiles with R
+    not a multiple of the tile, r = 1 and 3); timings at the path's shape
+    in float64."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import spmv_bcsr as sb
+
+    it = mat.interior
+    S, R = mat.n_shards, mat.n_own_pad
+    rows = {}
+    g = torch.Generator(device=dev).manual_seed(2)
+    for dt in (torch.float64, torch.float32):
+        tname = str(dt).split(".")[1]
+        cases = [("path", it.blocks.to(dt), it.bcol, it.n_brows, it.bpr, R, (1, NRHS))]
+        for seed, (b, bpr, Rr) in enumerate(((4, 13, 1001), (3, 5, 997))):
+            blocks, bcol, NB = random_bcsr(dev, b, bpr, Rr, dt, seed)
+            cases.append(("ragged", blocks, bcol, NB, bpr, Rr, (1, 3)))
+        for label, blocks, bcol, NB, bpr, Rc, rs in cases:
+            br = blocks.shape[2]
+            for r in rs:
+                name = "bcsr_spmv" if r == 1 else "bcsr_spmm"
+                shape = (S, Rc) if r == 1 else (S, Rc, r)
+                x = torch.randn(shape, dtype=dt, device=dev, generator=g)
+                kern = sb.bcsr_spmv if r == 1 else sb.bcsr_spmm
+                plain = ref.bcsr_spmv_ref if r == 1 else ref.bcsr_spmm_ref
+                k = kern(blocks, bcol, x, n_brows=NB, bpr=bpr)
+                p = plain(blocks, bcol, x, NB, bpr)
+                scale = plain(blocks.abs(), bcol, x.abs(), NB, bpr)
+                torch.cuda.synchronize()
+                check(k.shape == p.shape == shape, f"{name}: shape {tuple(k.shape)}")
+                # rows of zeros (the shards' padding rows) have scale 0 and k == p
+                e = float(((k - p).abs() / scale.clamp(min=torch.finfo(dt).tiny)).max())
+                print(f"parity {name:16s} {label:6s} {tname} S={S} R={Rc} "
+                      f"tile={br}x{blocks.shape[3]} bpr={bpr} r={r}: {e:.3e} "
+                      f"(limit {DOT_TOL[tname]:g}, relative to |A| @ |x|)", flush=True)
+                check(e <= DOT_TOL[tname], f"{name} disagrees with its plain version")
+                check(torch.equal(k, kern(blocks, bcol, x, n_brows=NB, bpr=bpr)),
+                      f"{name}: two launches on the same inputs differ")
+                if label != "path" or dt != torch.float64:
+                    continue
+                b_ = x.element_size()
+                ntiles = S * NB * bpr
+                nr = max(r, 1)
+                # the JAX package's OpCounts: tiles + ids, x read, y written
+                nbytes = ntiles * (br * br * b_ + 4) + S * Rc * nr * b_ + S * NB * br * nr * b_
+                flops = 2 * ntiles * br * br * nr
+                lib, note = bsr_library(blocks, bcol, NB, bpr, x)
+                print(f"library {name}: {note}", flush=True)
+                rows[name] = time_row(
+                    name, (nbytes, flops),
+                    lambda: kern(blocks, bcol, x, n_brows=NB, bpr=bpr),
+                    lambda: plain(blocks, bcol, x, NB, bpr), lib,
+                    float((k - p).abs().max()), tname)
+                rows[name]["library_note"] = note
+                del lib
+            del blocks, bcol
+        torch.cuda.empty_cache()
+    return rows
+
+
+def handle_solve(tag, sess, mat, b_np, dev, launches):
+    """hs through the session's solver handle for ``b_np`` (the path a
+    caller with their own right-hand side takes): one warm-up solve, then a
+    timed one with every launch count set to 0 just before and read just
+    after: relres and an independent
+    scipy residual, and each kernel's launches against the count the
+    iterations imply. Returns the iteration count."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.partition import pad_vector, unpad_vector
+
+    h = sess.solver(mat, tol=1e-8, maxiter=MAXITER)
+    bp = torch.from_numpy(pad_vector(b_np, mat)).to(dev)
+    x0 = torch.zeros_like(bp)
+    h.fn(bp, x0)  # warm-up: the first HYB SpMV derives its tail plan on the host
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = h.fn(bp, x0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = launch_counts()
+    it = res.iters
+    x = unpad_vector(res.x, mat)
+    check(bool(np.isfinite(x).all()), f"{tag}: non-finite solution")
+    relres = float(res.rel_residual)
+    a = sess.a
+    sres = float(np.linalg.norm(b_np - a @ x) / np.linalg.norm(b_np))
+    print(f"{tag}: format={mat.fmt} iters={it} relres={relres:.3e} scipy_relres={sres:.3e} "
+          f"wall={wall:.4f} s per_iter={1e3 * wall / max(it, 1):.3f} ms", flush=True)
+    check(relres <= 1e-8, f"{tag}: relres {relres} > 1e-8")
+    check(sres <= 1e-7, f"{tag}: scipy residual {sres} > 1e-7")
+    want = {k: (f"{it}", it) for k in ("fused_dots_n", "fused_axpy2_dots", "fused_axpy")}
+    if mat.fmt == "bcsr":  # one SpMV before the loop, one per iteration
+        want["bcsr_spmv"] = (f"1 + {it}", 1 + it)
+    for name, n in got.items():
+        formula, value = want.get(name, ("0", 0))
+        print(f"launches {tag} {name:16s} {n} = {formula} -> {value}", flush=True)
+        check(n == value, f"{tag}: {name} launched {n} times, expected {value}")
+        launches[name] += n
+    return it
+
+
+def hs_expected(fmt):
+    """Launches of one hs ``api.solve`` (1 warm-up + ``rep`` timed solves):
+    3 reduction kernels per iteration, and on BCSR one ``bcsr_spmv`` per
+    iteration plus one before the loop."""
+    def expected(it, rep):
+        want = {k: (f"(1 + {rep}) x {it}", (1 + rep) * it)
+                for k in ("fused_dots_n", "fused_axpy2_dots", "fused_axpy")}
+        if fmt == "bcsr":
+            want["bcsr_spmv"] = (f"(1 + {rep}) x (1 + {it})", (1 + rep) * (1 + it))
+        return want
+    return expected
+
+
+def block_expected(fmt):
+    """Launches of one block-HS ``api.solve``: 1 setup Gram plus 2 Grams,
+    1 update2 and 1 update per iteration; on BCSR one ``bcsr_spmm`` per
+    iteration plus one before the loop."""
+    def expected(it, rep):
+        want = {
+            "block_gram": (f"(1 + {rep}) x (1 + 2 x {it})", (1 + rep) * (1 + 2 * it)),
+            "block_update2": (f"(1 + {rep}) x {it}", (1 + rep) * it),
+            "block_update": (f"(1 + {rep}) x {it}", (1 + rep) * it)}
+        if fmt == "bcsr":
+            want["bcsr_spmm"] = (f"(1 + {rep}) x (1 + {it})", (1 + rep) * (1 + it))
+        return want
+    return expected
+
+
+def suitesparse_session(api, name, dev):
+    """The session of SuiteSparse analog ``name`` at the paper's row count
+    on SHARDS stacked shards, and its ``--format auto`` partition."""
+    spec = api.ProblemSpec(name, scale=1.0, shards=SHARDS)
+    t0 = time.perf_counter()
+    sess = api.session_for(spec, dev)
+    t1 = time.perf_counter()
+    mat = sess.matrix("auto", BLOCK)
+    it = mat.interior
+    shape = (f"tiles {tuple(it.blocks.shape)} bpr={it.bpr}" if mat.fmt == "bcsr" else
+             f"k_typ={it.k_typ} tail={list(it.n_tail)}" if mat.fmt == "hyb" else "")
+    print(f"{name}: n={sess.n} nnz={sess.a.nnz} matrix build {t1 - t0:.2f} s, "
+          f"partition {sess.partition_s[('auto', BLOCK)]:.2f} s: format=auto -> {mat.fmt} "
+          f"({mat.plan.mode}, R={mat.n_own_pad}) {shape} "
+          f"interior_bytes={mat.interior_stored_bytes()} stored_bytes={mat.stored_bytes()}",
+          flush=True)
+    return spec, sess, mat
+
+
+def bone_paths(api, dev, spec, sess, mat, launches):
+    """boneS10 on its BCSR interior: the SpMV against scipy, hs through
+    api.solve (b = A @ 1: one iteration), hs for a seeded right-hand side
+    through the solver handle, block-HS r = NRHS through api.solve."""
+    import numpy as np
+
+    cfg = dict(fmt="auto", block=BLOCK, maxiter=MAXITER)
+    reset_launches()
+    rep = api.solve(spec, api.SolverConfig(op="spmv", **cfg), session=sess)
+    got = launch_counts()
+    check(rep.ledger["resolved_format"] == "bcsr", "boneS10: auto did not resolve bcsr")
+    check(set(rep.outputs) == {"BCMGX-analog"}, f"boneS10 spmv legs {set(rep.outputs)}")
+    a = sess.a
+    ones = np.ones(sess.n)
+    err = float(np.abs(rep.outputs["BCMGX-analog"] - a @ ones).max() / (np.abs(a) @ ones).max())
+    print(f"boneS10 spmv: wall={rep.summary['BCMGX-analog']['wall_s'] * 1e3:.3f} ms "
+          f"max|y - A@1|/max|A|@1 = {err:.3e}; launches bcsr_spmv "
+          f"{got['bcsr_spmv']} = 1 + 100", flush=True)
+    check(err <= 1e-12, "boneS10 spmv disagrees with scipy")
+    check(got == dict(dict.fromkeys(got, 0), bcsr_spmv=101), f"boneS10 spmv launches {got}")
+    launches["bcsr_spmv"] += got["bcsr_spmv"]
+
+    rep = solve_path("boneS10-hs", api, spec, api.SolverConfig(**cfg), sess, launches,
+                     hs_expected("bcsr"))
+    iters = {label: s["iters"] for label, s in rep.summary.items()}
+    print(f"boneS10-hs with b = ones = A @ 1: iters {iters} (expected 1 on both legs)",
+          flush=True)
+    check(set(iters.values()) == {1} and len(iters) == 2, f"boneS10 b = ones: {iters}")
+    handle_solve("boneS10-hs-seeded", sess, mat,
+                 np.random.default_rng(0).standard_normal(sess.n), dev, launches)
+    solve_path("boneS10-block", api, spec, api.SolverConfig(nrhs=NRHS, **cfg), sess,
+               launches, block_expected("bcsr"))
+
+
+def g3_paths(dev, sess, mat, launches):
+    """G3_circuit on its HYB interior: hs for a seeded right-hand side, and
+    two SpMVs that must give the same bits and scipy's product."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.partition import pad_vector, unpad_vector
+
+    check(mat.fmt == "hyb", f"G3_circuit: auto resolved {mat.fmt}, not hyb")
+    rng = np.random.default_rng(0)
+    handle_solve("G3_circuit-hs-seeded", sess, mat, rng.standard_normal(sess.n), dev,
+                 launches)
+    h = sess.solver(mat, op="spmv")
+    xr = rng.standard_normal(sess.n)
+    xp = torch.from_numpy(pad_vector(xr, mat)).to(dev)
+    y1 = h.fn(xp)
+    y2 = h.fn(xp)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(y1, y2))
+    a = sess.a
+    err = float((np.abs(unpad_vector(y1, mat) - a @ xr) / (np.abs(a) @ np.abs(xr))).max())
+    print(f"G3_circuit spmv (hyb): two runs bitwise equal: {same}; "
+          f"max|y - A@x|/(|A|@|x|) = {err:.3e}", flush=True)
+    check(same, "G3_circuit: the HYB SpMV is not bitwise repeatable")
+    check(err <= 1e-12, "G3_circuit spmv disagrees with scipy")
+
 
 
 def main():
@@ -427,7 +739,6 @@ def main():
 
     from repro_torch import api
     from repro_torch.kernels import _build
-    from repro_torch.kernels import fused_reductions as fr
 
     t0 = time.perf_counter()
     built = _build.build()
@@ -450,10 +761,9 @@ def main():
     sess = api.session_for(spec, dev)
     print(f"matrix build: {time.perf_counter() - t0:.2f} s "
           f"(n={sess.n} nnz={sess.a.nnz})", flush=True)
-    launches = dict.fromkeys(fr.KERNELS, 0)  # summed over the solve paths
-    rep = solve_path("main", api, spec, config, sess, launches, lambda it, rep: {
-        k: (f"(1 + {rep}) x {it}", (1 + rep) * it)
-        for k in ("fused_dots_n", "fused_axpy2_dots", "fused_axpy")})
+    launches = dict.fromkeys(all_kernels(), 0)  # summed over the solve paths
+    rep = solve_path("main", api, spec, config, sess, launches, hs_expected("ell"))
+    hs_iters = rep.summary["BCMGX-analog"]["iters"]
     hs_wall = rep.summary["BCMGX-analog"]["wall_s"]
     a = sess.a
     b = np.ones(sess.n)
@@ -486,11 +796,35 @@ def main():
     e_b = reps["block"].solvers["BCMGX-analog"]
     print(f"per_solve_wall_s: block-HS r={NRHS} {e_b['per_solve_wall_s']:.4f} s, "
           f"hs r=1 {hs_wall:.4f} s", flush=True)
+
+    # --- the interior formats -------------------------------------------
+    torch.cuda.empty_cache()
+    rep_b = solve_path("p7-bcsr", api, spec,
+                       api.SolverConfig(fmt="bcsr", block=BLOCK, maxiter=MAXITER),
+                       sess, launches, hs_expected("bcsr"))
+    mb = sess.matrix("bcsr", BLOCK)
+    it_b = rep_b.summary["BCMGX-analog"]["iters"]
+    print(f"p7-bcsr: tiles {tuple(mb.interior.blocks.shape)} bpr={mb.interior.bpr} "
+          f"interior_bytes={mb.interior_stored_bytes()} partition "
+          f"{sess.partition_s[('bcsr', BLOCK)]:.2f} s; hs iters {it_b} on BCSR against "
+          f"{hs_iters} on ELL (difference {it_b - hs_iters})", flush=True)
+    check(abs(it_b - hs_iters) <= 1, "poisson7 BCSR hs iterations differ from ELL by > 1")
+    spec_bone, sess_bone, mat_bone = suitesparse_session(api, "boneS10", dev)
+    check(mat_bone.fmt == "bcsr", f"boneS10: auto resolved {mat_bone.fmt}, not bcsr")
+    rows.update(bcsr_kernel_phase(dev, mat_bone))
+    bone_paths(api, dev, spec_bone, sess_bone, mat_bone, launches)
+    torch.cuda.empty_cache()
+    _, sess_g3, mat_g3 = suitesparse_session(api, "G3_circuit", dev)
+    g3_paths(dev, sess_g3, mat_g3, launches)
     for name, n in launches.items():
         rows[name]["launches"] = n
 
     for variant, nrhs in (("hs", 1), ("fcg", 1), ("pipecg", 1), ("hs", NRHS)):
         profile_phase(sess, dev, variant, nrhs)
+    profile_phase(sess, dev, "hs", 1, fmt="bcsr")
+    profile_phase(sess_bone, dev, "hs", 1, fmt="auto", seeded=True)
+    profile_phase(sess_bone, dev, "hs", NRHS, fmt="auto", seeded=True)
+    profile_phase(sess_g3, dev, "hs", 1, fmt="auto", seeded=True)
 
     keys =("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

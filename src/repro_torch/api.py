@@ -2,9 +2,10 @@
 
 Port of ``repro.api`` for the paths ported so far: ``op="cg"`` with the
 ``hs``, ``fcg`` and ``pipecg`` variants, multi-RHS block-HS CG
-(``nrhs > 1``), and ``op="spmv"``, on ELL partitions, with the
-BCMGX-analog leg and — for single-RHS solves — the Ginkgo-analog leg
-beside it.
+(``nrhs > 1``), and ``op="spmv"``, on the Poisson cubes and the SuiteSparse
+analogs, with an ELL, HYB or BCSR interior (``fmt``, or ``"auto"``: the
+stored-bytes cost model picks), with the BCMGX-analog leg and the
+Ginkgo-analog leg beside it where the JAX package runs one.
 
 * :class:`ProblemSpec` — *what* to solve (problem/side/scale/shards);
 * :class:`SolverConfig` — *how* to solve it, with the JAX package's
@@ -59,10 +60,11 @@ def _not_ported(what: str, item: str):
 class ProblemSpec:
     """What to solve: the matrix source and its partitioning width.
 
-    ``problem`` is ``poisson7`` / ``poisson27`` (side³ cube stencils); the
-    SuiteSparse problems of the JAX package are not ported yet.
-    ``shards == 0`` means one shard per visible device — the port stacks
-    every shard on one device, so that is 1.
+    ``problem`` is ``poisson7`` / ``poisson27`` (side³ cube stencils) or a
+    SuiteSparse name (``scale`` subsamples it — see
+    ``matrices/suitesparse.py``). ``shards == 0`` means one shard per
+    visible device — the port stacks every shard on one device, so that
+    is 1.
     """
 
     problem: str = "poisson7"
@@ -84,20 +86,27 @@ class ProblemSpec:
         ]
 
     @property
-    def stencil(self) -> str:
-        if self.problem not in ("poisson7", "poisson27"):
-            _not_ported(f"problem {self.problem!r} (SuiteSparse matrices)", "item 2")
+    def stencil(self) -> str | None:
+        """``7pt`` / ``27pt`` for a Poisson cube, None for a SuiteSparse
+        problem."""
+        if not self.problem.startswith("poisson"):
+            return None
         return "7pt" if self.problem == "poisson7" else "27pt"
 
     @property
     def label(self) -> str:
-        """Display name, e.g. ``7pt-24^3``."""
+        """Display name, e.g. ``7pt-24^3``, or the SuiteSparse name."""
+        if self.stencil is None:
+            return self.problem
         return f"{self.stencil}-{self.side}^3"
 
     def load(self):
         """Materialize the host matrix: ``(scipy CSR, display name)``."""
         from repro_torch.matrices import poisson
+        from repro_torch.matrices.suitesparse import load_or_generate
 
+        if self.stencil is None:
+            return load_or_generate(self.problem, scale=self.scale), self.label
         p = poisson.cube(self.side, self.stencil)
         return poisson.poisson_scipy(p), self.label
 
@@ -271,8 +280,6 @@ class SolverConfig:
         run yet, naming its ``ROADMAP.md`` queue item."""
         if self.variant == "sstep":
             _not_ported("s-step CG", "item 9")
-        if self.fmt != "ell":
-            _not_ported(f"interior format {self.fmt!r}", "item 8")
         if self.amg or self.amgx_analog:
             _not_ported("AMG preconditioning", "item 12")
         if self.autotune:
@@ -441,9 +448,11 @@ def solve(
 
     Loads (or reuses) the problem and its partitions through a warm
     :class:`SolverSession` (``session``, else :func:`session_for`), runs
-    the BCMGX-analog leg and — unless ``config.nrhs > 1``, whose batched
-    block-HS leg has no single-RHS baseline beside it, as in the JAX
-    package — the Ginkgo-analog leg under the energy trace,
+    the BCMGX-analog leg and the Ginkgo-analog leg under the energy trace —
+    the latter, as in the JAX package, beside every single-RHS CG solve (a
+    batched block-HS leg has no single-RHS baseline) and beside an SpMV
+    only when the interior format resolves to ELL (the baseline keeps the
+    flat ELL layout by definition) —
     prints the driver report (``verbose``), optionally writes the ledger
     JSON, and returns a :class:`SolveReport`. Everything runs in float64,
     as the JAX package's CLI does.
@@ -493,10 +502,12 @@ def solve(
         format=config.fmt, nrhs=config.nrhs, solvers={}, meta=ledger_meta(dev),
     )
     nrhs = config.nrhs
+    mkey = (config.fmt, config.block)
     mat = session.matrix(config.fmt, config.block)
-    # the naive baseline is single-RHS by definition: its (expensive)
-    # all-gather partition is built only when a naive leg will run
-    need_naive = config.op == "spmv" or nrhs == 1
+    # the naive baseline keeps the flat ELL layout and is single-RHS by
+    # definition: its (expensive) all-gather partition is built only when
+    # a naive leg will run
+    need_naive = mat.fmt == "ell" if config.op == "spmv" else nrhs == 1
     matg = session.naive_matrix() if need_naive else None
     log(
         f"format={mat.fmt} (requested {config.fmt}) "
@@ -519,12 +530,13 @@ def solve(
 
     if config.op == "spmv":
         legs = [
-            ("BCMGX-analog", mat, ("ell", config.block),
+            ("BCMGX-analog", mat, mkey,
              session.solver(mat, op="spmv", overlap=overlap)),
-            ("Ginkgo-analog", matg, ("allgather", 0),
-             session.solver(matg, op="spmv", variant="naive")),
         ]
-        for label, m, mkey, h in legs:
+        if need_naive:
+            legs.append(("Ginkgo-analog", matg, ("allgather", 0),
+                         session.solver(matg, op="spmv", variant="naive")))
+        for label, m, key, h in legs:
             if dev.type == "cuda":
                 torch.cuda.reset_peak_memory_stats(dev)
             h.warm(bp)  # executed counts recorded
@@ -551,7 +563,7 @@ def solve(
                 _print_regions(label, led)
             payload["solvers"][label] = dict(
                 led, wall_s=wall, modeled_s=t_model / 100,
-                partition_s=session.partition_s[mkey],
+                partition_s=session.partition_s[key],
                 peak_mem_bytes=_peak_mem(dev),
             )
             outputs[label] = unpad_vector(y, m)
@@ -566,7 +578,7 @@ def solve(
         )
 
     legs = [
-        ("BCMGX-analog", mat, ("ell", config.block), session.solver(
+        ("BCMGX-analog", mat, mkey, session.solver(
             mat, nrhs=nrhs, variant=config.variant, tol=config.tol,
             maxiter=config.maxiter, overlap=overlap,
         )),
@@ -575,7 +587,7 @@ def solve(
         legs.append(("Ginkgo-analog", matg, ("allgather", 0), session.solver(
             matg, variant="naive", tol=config.tol, maxiter=config.maxiter,
         )))
-    for label, m, mkey, hdl in legs:
+    for label, m, key, hdl in legs:
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
         res = hdl.warm(bp, x0)  # warm-up: counts recorded
@@ -621,7 +633,7 @@ def solve(
             per_solve_spmv_matrix_bytes=matrix_bytes / nrhs,
             wall_repeats_s=walls,
             per_solve_wall_s=wall / nrhs,
-            partition_s=session.partition_s[mkey],
+            partition_s=session.partition_s[key],
             peak_mem_bytes=_peak_mem(dev),
         )
         if nrhs > 1:

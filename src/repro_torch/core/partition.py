@@ -1,6 +1,6 @@
 """Block-row partitioning + halo-exchange planning (host side, numpy).
 
-Port of the ELL / 1-D ring path of ``repro.core.partition``:
+Port of the 1-D ring path of ``repro.core.partition``:
 
 * matrices are distributed in **blocks of contiguous rows** across shards,
   with 4-byte local column indices;
@@ -8,6 +8,9 @@ Port of the ELL / 1-D ring path of ``repro.core.partition``:
   column the shard owns) and a compact **boundary block** holding only the
   ghost-touching rows' external entries, so the SpMV can run the interior
   while the halo is exchanged and scatter-add the boundary block after;
+* the interior is stored as ELL, HYB (ELL prefix + COO tail) or BCSR
+  (dense tiles), or as the one of them the stored-bytes cost model picks
+  (``fmt="auto"``, ``roofline/format_model.py``);
 * the halo exchange is planned as ring shifts (every off-shard coupling
   reaches at most ``max_ring`` shards away) or falls back to an all-gather
   of the whole vector ("allgather" mode, also the Ginkgo-analog layout).
@@ -16,8 +19,8 @@ The builder here is **vectorised**: every step is a numpy array operation
 over all rows and entries at once, with no per-row Python loop, and it
 produces the same arrays, byte for byte, as the JAX package's builder
 (which walks the rows one by one and so takes minutes at the sizes the
-port runs on the card). HYB/BCSR interiors, 2-D process grids and deep
-halos are later slices of the port.
+port runs on the card). 2-D process grids and deep halos are later
+slices of the port.
 
 Shards are stacked on one device: every array carries a leading ``S`` axis
 and the solver bodies run over all shards at once (core/spmv.py).
@@ -113,7 +116,7 @@ class HaloPlan:
 
 
 # ---------------------------------------------------------------------------
-# Interior storage + the distributed matrix
+# Interior storage blocks (format-polymorphic) + the distributed matrix
 # ---------------------------------------------------------------------------
 
 
@@ -121,30 +124,45 @@ def _size(a) -> int:
     return int(np.prod(tuple(a.shape), dtype=np.int64))
 
 
-@dataclasses.dataclass(frozen=True)
-class ELLBlock:
-    """Padded-ELL interior: (S, R, k) slots/row, padding data == 0, col == 0."""
+FORMATS = ("ell", "hyb", "bcsr")
 
-    data: torch.Tensor  # (S, R, k)
-    col: torch.Tensor  # (S, R, k) int32, indexes x_own
 
-    fmt = "ell"
+def _flat_col(col: torch.Tensor) -> torch.Tensor:
+    """(S*R*k,) int32 ids of an (S, R, k) ELL column array into the
+    flattened (S*R,) stacked x_own."""
+    S, R, _ = col.shape
+    offs = torch.arange(S, dtype=torch.int32, device=col.device) * R
+    return (col + offs[:, None, None]).reshape(-1)
+
+
+class _Block:
+    """What every interior block shares: the tensors it holds
+    (``_TENSORS``, the first one carrying the values), their dtype and
+    device, and a copy of the block on another device."""
+
+    _TENSORS: tuple = ()
 
     @property
-    def slots(self) -> int:
-        """Stored value slots, padding included."""
-        return _size(self.data)
+    def dtype(self) -> torch.dtype:
+        return getattr(self, self._TENSORS[0]).dtype
 
     @property
-    def index_bytes(self) -> int:
-        return _size(self.col) * 4
+    def device(self) -> torch.device:
+        return getattr(self, self._TENSORS[0]).device
+
+    def to(self, device):
+        return dataclasses.replace(
+            self, **{f: getattr(self, f).to(device) for f in self._TENSORS}
+        )
+
+
+class _EllColumns:
+    """Gather indices derived once from an (S, R, k) ``col`` array."""
 
     @functools.cached_property
     def flat_col(self) -> torch.Tensor:
         """(S*R*k,) int32 ids into the flattened (S*R,) stacked x_own."""
-        S, R, _ = self.col.shape
-        offs = torch.arange(S, dtype=torch.int32, device=self.col.device) * R
-        return (self.col + offs[:, None, None]).reshape(-1)
+        return _flat_col(self.col)
 
     @functools.cached_property
     def slot_col(self) -> torch.Tensor:
@@ -155,16 +173,189 @@ class ELLBlock:
 
 
 @dataclasses.dataclass(frozen=True)
-class DistMat:
-    """Block-row-distributed sparse matrix: ELL interior + compact boundary
-    block, stacked over shards on one device.
+class ELLBlock(_Block, _EllColumns):
+    """Padded-ELL interior: (S, R, k) slots/row, padding data == 0, col == 0.
 
-    * ``interior``          — (S, R, k) :class:`ELLBlock` of the entries
-      whose column the shard owns, indexing ``x_own`` (R = n_own_pad).
+    Every row gets ``k = max_row_nnz`` slots, so one long row inflates the
+    storage of every row on every shard — the blowup HYB exists to avoid.
+    """
+
+    data: torch.Tensor  # (S, R, k)
+    col: torch.Tensor  # (S, R, k) int32, indexes x_own
+
+    fmt = "ell"
+    _TENSORS = ("data", "col")
+
+    @property
+    def slots(self) -> int:
+        """Stored value slots, padding included."""
+        return _size(self.data)
+
+    @property
+    def index_bytes(self) -> int:
+        return _size(self.col) * 4
+
+    @property
+    def k(self) -> int:
+        return self.data.shape[-1]
+
+
+#: Partial sums added per step of the HYB tail reduction (:class:`TailPlan`).
+TAIL_FAN_IN = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class TailPlan:
+    """How the HYB tail's products reach their rows with no float atomics.
+
+    The tail's products form a flat ``(S*T,)`` vector (``(S*T, r)`` for a
+    column block). Each entry of ``levels`` is a ``(V, TAIL_FAN_IN)`` gather
+    index into the previous level's values, with index ``len(previous)``
+    standing for an appended zero: row ``v`` of it sums up to
+    ``TAIL_FAN_IN`` consecutive partial sums of ONE matrix row, in order.
+    After the last level every matrix row with a tail holds one sum;
+    ``src`` picks those sums and ``rows`` (each row once) are their flat
+    ``(S*R,)`` destinations. A fixed tree of sums, then one add per
+    destination: the same bits on every run.
+    """
+
+    levels: tuple
+    src: torch.Tensor
+    rows: torch.Tensor
+
+
+def _tail_plan(tail_row: torch.Tensor, n_tail, R: int) -> TailPlan:
+    """The :class:`TailPlan` of an (S, T) ``tail_row`` whose first
+    ``n_tail[s]`` slots per shard are genuine (every slot when ``n_tail`` is
+    empty: padding slots add exact zeros to row 0)."""
+    tr = tail_row.detach().cpu().numpy().astype(np.int64)
+    S, T = tr.shape
+    counts = np.asarray(n_tail if len(n_tail) == S else [T] * S, np.int64)
+    genuine = np.arange(T)[None, :] < counts[:, None]
+    pos = np.flatnonzero(genuine.reshape(-1))
+    rows = (np.arange(S, dtype=np.int64)[:, None] * R + tr).reshape(-1)[pos]
+    order = np.argsort(rows, kind="stable")
+    pos, rows = pos[order], rows[order]
+    levels = []
+    n_prev = S * T
+    while len(rows):
+        rank = _rank_in_groups(rows)
+        if not rank.max():
+            break
+        chunk = rank // TAIL_FAN_IN
+        new = np.r_[True, (rows[1:] != rows[:-1]) | (chunk[1:] != chunk[:-1])]
+        gid = np.cumsum(new) - 1
+        idx = np.full((int(gid[-1]) + 1, TAIL_FAN_IN), n_prev, np.int64)
+        idx[gid, rank % TAIL_FAN_IN] = pos
+        levels.append(idx)
+        n_prev = idx.shape[0]
+        pos = np.arange(n_prev, dtype=np.int64)
+        rows = rows[new]
+    dev = tail_row.device
+    t = lambda a: torch.from_numpy(a).to(dev)
+    return TailPlan(tuple(t(i) for i in levels), t(pos), t(rows))
+
+
+@dataclasses.dataclass(frozen=True)
+class HYBBlock(_Block, _EllColumns):
+    """Hybrid interior: dense ELL prefix + COO tail for the long rows.
+
+    The first ``k_typ`` entries of every row live in the (S, R, k_typ) ELL
+    part; the overflow of the rows longer than ``k_typ`` lives in an (S, T)
+    COO tail, in row order, added to its rows after the prefix product.
+    ``k_typ`` is chosen by the stored-bytes cost model
+    (``roofline/format_model.hyb_split``). Padding: data == 0, col == 0,
+    tail_row == 0 (exact-zero adds); ``n_tail`` counts the genuine tail
+    entries per shard (host metadata).
+    """
+
+    data: torch.Tensor  # (S, R, k_typ)
+    col: torch.Tensor  # (S, R, k_typ) int32
+    tail_data: torch.Tensor  # (S, T)
+    tail_col: torch.Tensor  # (S, T) int32, indexes x_own
+    tail_row: torch.Tensor  # (S, T) int32, local destination row
+    n_tail: tuple[int, ...] = ()
+
+    fmt = "hyb"
+    _TENSORS = ("data", "col", "tail_data", "tail_col", "tail_row")
+
+    @property
+    def slots(self) -> int:
+        return _size(self.data) + _size(self.tail_data)
+
+    @property
+    def index_bytes(self) -> int:
+        # ELL part: one col id per slot; tail: col + destination row.
+        return _size(self.col) * 4 + _size(self.tail_data) * 8
+
+    @property
+    def k_typ(self) -> int:
+        return self.data.shape[-1]
+
+    @functools.cached_property
+    def flat_tail_col(self) -> torch.Tensor:
+        """(S*T,) int32 ids of the tail's columns into the flattened
+        (S*R,) stacked x_own."""
+        S, T = self.tail_col.shape
+        R = self.data.shape[1]
+        offs = torch.arange(S, dtype=torch.int32, device=self.device) * R
+        return (self.tail_col + offs[:, None]).reshape(-1)
+
+    @functools.cached_property
+    def tail_plan(self) -> TailPlan:
+        return _tail_plan(self.tail_row, self.n_tail, self.data.shape[1])
+
+
+@dataclasses.dataclass(frozen=True)
+class BCSRBlock(_Block):
+    """Blocked interior: dense (br, bc) tiles in the uniform
+    blocks-per-row layout of the ``bcsr_spmv`` kernel
+    (``core.sparse.pack_bcsr``): block-row ``i`` of shard ``s`` owns tiles
+    ``[i*bpr, (i+1)*bpr)``; padding tiles are zero with ``bcol == 0``.
+
+    One block-column id per *tile* instead of per entry — the index-traffic
+    win on banded/FEM matrices — at the price of storing the zero fill of
+    partly populated tiles. The SpMV runs the dispatch op ``bcsr_spmv``
+    (``kernels/dispatch.py``): the hand-written kernel on the card.
+    """
+
+    blocks: torch.Tensor  # (S, n_brows * bpr, br, bc)
+    bcol: torch.Tensor  # (S, n_brows * bpr) int32, block-column ids
+    n_brows: int
+    bpr: int
+    br: int
+    bc: int
+
+    fmt = "bcsr"
+    _TENSORS = ("blocks", "bcol")
+
+    @property
+    def slots(self) -> int:
+        return _size(self.blocks)
+
+    @property
+    def index_bytes(self) -> int:
+        return _size(self.bcol) * 4
+
+
+InteriorBlock = ELLBlock | HYBBlock | BCSRBlock
+
+
+@dataclasses.dataclass(frozen=True)
+class DistMat:
+    """Block-row-distributed sparse matrix: format-polymorphic interior +
+    compact boundary block, stacked over shards on one device.
+
+    * ``interior``          — the entries whose column the shard owns,
+      indexing ``x_own`` (R = n_own_pad), stored as one of
+      :class:`ELLBlock` / :class:`HYBBlock` / :class:`BCSRBlock` — chosen
+      by the ``fmt`` argument of :func:`partition_csr`, or by the
+      stored-bytes cost model under ``fmt="auto"``
+      (``roofline/format_model.py``).
     * ``data_ext/col_ext``  — (S, B, k_ext): the boundary block, the
       external entries of the ghost-touching rows only; ``col_ext`` indexes
       the shard's ``x_ext`` (see :class:`HaloPlan`). Row ``j`` belongs to
-      local row ``bnd_rows[:, j]``.
+      local row ``bnd_rows[:, j]``. Always ELL.
     * ``bnd_rows``          — (S, B) int32; slots past ``n_bnd[s]`` are
       padding (row 0, zero data — a scatter-add of exact zeros).
     * ``send_sel``          — (S, sum(widths)) int32: per shift k, the slice
@@ -175,7 +366,7 @@ class DistMat:
     contribute nothing).
     """
 
-    interior: ELLBlock
+    interior: InteriorBlock
     data_ext: torch.Tensor
     col_ext: torch.Tensor
     bnd_rows: torch.Tensor
@@ -187,6 +378,7 @@ class DistMat:
 
     @property
     def fmt(self) -> str:
+        """Interior storage format: 'ell' | 'hyb' | 'bcsr'."""
         return self.interior.fmt
 
     @property
@@ -199,11 +391,11 @@ class DistMat:
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.interior.data.dtype
+        return self.interior.dtype
 
     @property
     def device(self) -> torch.device:
-        return self.interior.data.device
+        return self.interior.device
 
     # -- storage accounting ---------------------------------------------------
 
@@ -259,15 +451,14 @@ class DistMat:
             return self
         mv = lambda t: t.to(device)
         return dataclasses.replace(
-            self,
-            interior=ELLBlock(data=mv(self.interior.data), col=mv(self.interior.col)),
+            self, interior=self.interior.to(device),
             data_ext=mv(self.data_ext), col_ext=mv(self.col_ext),
             bnd_rows=mv(self.bnd_rows), send_sel=mv(self.send_sel),
         )
 
 
 # ---------------------------------------------------------------------------
-# Builders
+# Interior packers: the flat interior entries -> one InteriorBlock
 # ---------------------------------------------------------------------------
 
 
@@ -290,6 +481,164 @@ def _rank_in_groups(keys: np.ndarray) -> np.ndarray:
 
 def _to_torch(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+@dataclasses.dataclass(frozen=True)
+class InteriorEntries:
+    """A partition's interior (own-column) entries in flat form, in CSR
+    order: entry ``e`` is ``val[e]`` at local row ``row[e]`` and local
+    column ``col[e]`` of shard ``shard[e]``, the ``slot[e]``-th interior
+    entry of its row. ``row_len`` counts the interior entries of every
+    global row (rows in global order, i.e. shard by shard); R is the padded
+    rows per shard. The host-side stand-in for the JAX package's per-shard
+    row lists."""
+
+    shard: np.ndarray
+    row: np.ndarray
+    col: np.ndarray
+    val: np.ndarray
+    slot: np.ndarray
+    row_len: np.ndarray
+    row_starts: tuple[int, ...]
+    R: int
+
+    @property
+    def S(self) -> int:
+        return len(self.row_starts) - 1
+
+    def shard_row_lens(self) -> list:
+        """Per shard, the interior entry count of each of its rows."""
+        st = self.row_starts
+        return [self.row_len[st[s]:st[s + 1]] for s in range(self.S)]
+
+    def shard_slices(self) -> list:
+        """Per shard, the slice of the (shard-sorted) entry arrays it owns."""
+        cuts = np.searchsorted(self.shard, np.arange(self.S + 1))
+        return [slice(int(cuts[s]), int(cuts[s + 1])) for s in range(self.S)]
+
+
+def _pack_interior_ell(e: InteriorEntries, dtype, device) -> ELLBlock:
+    S, R = e.S, e.R
+    k = max(int(e.row_len.max()) if len(e.row_len) else 0, 1)
+    flat = (e.shard * R + e.row) * k + e.slot
+    data = np.zeros((S, R, k), dtype)
+    col = np.zeros((S, R, k), np.int32)
+    data.reshape(-1)[flat] = e.val
+    col.reshape(-1)[flat] = e.col
+    return ELLBlock(data=_to_torch(data, device), col=_to_torch(col, device))
+
+
+def _pack_interior_hyb(e: InteriorEntries, dtype, device,
+                       k_typ: int | None = None) -> HYBBlock:
+    from repro_torch.roofline.format_model import hyb_split
+
+    S, R = e.S, e.R
+    if k_typ is None:
+        k_typ, _ = hyb_split(e.row_len, n_rows=R * S)
+    k_typ = max(int(k_typ), 1)
+    pre = e.slot < k_typ
+    flat = (e.shard[pre] * R + e.row[pre]) * k_typ + e.slot[pre]
+    data = np.zeros((S, R, k_typ), dtype)
+    col = np.zeros((S, R, k_typ), np.int32)
+    data.reshape(-1)[flat] = e.val[pre]
+    col.reshape(-1)[flat] = e.col[pre]
+    # the tail: every row's entries past k_typ, in row order per shard
+    tail = np.flatnonzero(~pre)
+    ts = e.shard[tail]
+    tj = _rank_in_groups(ts)
+    n_tail = tuple(int(c) for c in np.bincount(ts, minlength=S))
+    T = max(max(n_tail), 1)
+    tail_data = np.zeros((S, T), dtype)
+    tail_col = np.zeros((S, T), np.int32)
+    tail_row = np.zeros((S, T), np.int32)
+    tail_data[ts, tj] = e.val[tail]
+    tail_col[ts, tj] = e.col[tail]
+    tail_row[ts, tj] = e.row[tail]
+    t = lambda a: _to_torch(a, device)
+    return HYBBlock(data=t(data), col=t(col), tail_data=t(tail_data),
+                    tail_col=t(tail_col), tail_row=t(tail_row), n_tail=n_tail)
+
+
+def _pack_interior_bcsr(e: InteriorEntries, dtype, device, br: int,
+                        bc: int) -> BCSRBlock:
+    """The JAX package's per-shard ``pack_bcsr`` of every shard's R x R
+    interior, re-laid to the largest blocks-per-row of all shards, done
+    for all shards at once: tiles sorted by (shard, block-row, block-col),
+    slot = rank inside the block-row."""
+    S, R = e.S, e.R
+    NB = max(-(-R // br), 1)
+    n_bcols = max(-(-R // bc), 1)
+    key = (e.shard * NB + e.row // br) * n_bcols + e.col // bc
+    uk, inv = np.unique(key, return_inverse=True)
+    sb = uk // n_bcols  # shard * NB + block-row of every tile
+    slot = _rank_in_groups(sb)
+    bpr = max(int(slot.max()) + 1 if len(slot) else 0, 1)
+    dst = sb * bpr + slot
+    blocks = np.zeros((S * NB * bpr, br, bc), dtype)
+    bcol = np.zeros(S * NB * bpr, np.int32)
+    bcol[dst] = uk % n_bcols
+    blocks[dst[inv.reshape(-1)], e.row % br, e.col % bc] = e.val
+    return BCSRBlock(
+        blocks=_to_torch(blocks.reshape(S, NB * bpr, br, bc), device),
+        bcol=_to_torch(bcol.reshape(S, NB * bpr), device),
+        n_brows=NB, bpr=bpr, br=br, bc=bc,
+    )
+
+
+def block_stats_from_arrays(
+    r_loc: np.ndarray, c_loc: np.ndarray, R: int, br: int, bc: int
+) -> tuple[int, int]:
+    """(n_blocks, max_blocks_per_block_row) of one shard's interior, from
+    flat local (row, col) index arrays — the JAX package's BCSR
+    block-counting formula, which ``fmt="auto"`` prices."""
+    n_bcols = -(-R // bc)
+    if not len(c_loc):
+        return 0, 0
+    keys = np.unique(
+        (np.asarray(r_loc, np.int64) // br) * n_bcols
+        + np.asarray(c_loc, np.int64) // bc
+    )
+    counts = np.bincount(keys // n_bcols)
+    return len(keys), int(counts.max())
+
+
+def pack_interior(
+    fmt: str, entries: InteriorEntries, *, dtype=np.float64, block=(4, 4),
+    device="cpu",
+) -> InteriorBlock:
+    """Pack the interior entries into one :class:`InteriorBlock` on
+    ``device``. ``fmt`` is one of :data:`FORMATS` or ``"auto"``, which
+    resolves the format minimizing the stored-bytes / traffic cost model
+    (``roofline/format_model.choose_format``) — never costlier than ELL by
+    construction, since ELL is always a candidate. ``block`` is the BCSR
+    tile shape. Every packer is vectorised over all entries and gives the
+    JAX package's arrays byte for byte."""
+    e = entries
+    if fmt == "auto":
+        from repro_torch.roofline.format_model import choose_format
+
+        fmt, _ = choose_format(
+            e.shard_row_lens(),
+            n_rows=e.R,
+            shard_blocks=[
+                block_stats_from_arrays(e.row[sl], e.col[sl], e.R, block[0], block[1])
+                for sl in e.shard_slices()
+            ],
+            br=block[0],
+            bc=block[1],
+        )
+    if fmt == "ell":
+        return _pack_interior_ell(e, dtype, device)
+    if fmt == "hyb":
+        return _pack_interior_hyb(e, dtype, device)
+    if fmt == "bcsr":
+        return _pack_interior_bcsr(e, dtype, device, block[0], block[1])
+    raise ValueError(f"unknown interior format {fmt!r}; want {FORMATS} or 'auto'")
+
+
+# ---------------------------------------------------------------------------
+# Builders
+# ---------------------------------------------------------------------------
 
 
 def partition_csr(
@@ -316,11 +665,18 @@ def partition_csr(
     byte; they are built with numpy over all entries at once and moved to
     ``device`` at the end (a host function: ``cpu`` by default).
 
-    Only ``fmt="ell"``, ``grid=None`` and ``halo_depth=1`` are ported;
-    the other layouts raise ``NotImplementedError``.
+    ``fmt`` selects the interior storage format — one of :data:`FORMATS`
+    (``ell``/``hyb``/``bcsr``) or ``"auto"`` (stored-bytes cost model, see
+    ``roofline/format_model.py``); ``block`` is the BCSR tile shape. The
+    boundary block and halo plan do not depend on it. The input is a
+    canonical CSR matrix (no duplicate entries), as every builder of the
+    repository gives.
+
+    Only ``grid=None`` and ``halo_depth=1`` are ported; the 2-D grid and
+    deep halos raise ``NotImplementedError``.
     """
-    if fmt != "ell":
-        _not_ported(f"interior format {fmt!r}", "queue 1, item 8")
+    if fmt not in FORMATS + ("auto",):
+        raise ValueError(f"unknown interior format {fmt!r}; want {FORMATS} or 'auto'")
     if grid is not None and int(grid[0]) > 1:
         _not_ported("the 2-D process grid", "queue 1, item 10")
     if int(halo_depth) != 1:
@@ -339,8 +695,6 @@ def partition_csr(
     rows = np.arange(n, dtype=np.int64)
     row_shard = part.owner_of(rows)
     row_lo = starts[row_shard]
-    # padded stacked row id of every global row: shard * R + local row
-    prow = rows - row_lo + row_shard * R
 
     ent_row = np.repeat(rows, row_len)
     ent_lo = np.repeat(row_lo, row_len)
@@ -393,20 +747,22 @@ def partition_csr(
         e_owner = part.owner_of(e_col)
         e_lidx = e_owner * R + (e_col - starts[e_owner])
 
-    # --- interior ELL block ------------------------------------------------
+    # --- interior block ----------------------------------------------------
     own_e = np.flatnonzero(own)
     o_row = ent_row[own_e]
     del ent_row
     own_cnt = np.bincount(o_row, minlength=n)
-    k = max(int(own_cnt.max()) if n else 0, 1)
     o_ptr = np.concatenate([[0], np.cumsum(own_cnt)])
-    o_slot = np.arange(len(o_row), dtype=np.int64) - o_ptr[o_row]
-    flat = prow[o_row] * k + o_slot
-    data = np.zeros((S, R, k), dtype)
-    col = np.zeros((S, R, k), np.int32)
-    data.reshape(-1)[flat] = vals[own_e]
-    col.reshape(-1)[flat] = (indices[own_e] - row_lo[o_row]).astype(np.int32)
-    del own_e, o_row, o_slot, flat
+    o_lo = row_lo[o_row]
+    entries = InteriorEntries(
+        shard=row_shard[o_row], row=o_row - o_lo, col=indices[own_e] - o_lo,
+        val=vals[own_e], slot=np.arange(len(o_row), dtype=np.int64) - o_ptr[o_row],
+        row_len=own_cnt, row_starts=part.row_starts, R=R,
+    )
+    del own_e, o_row, o_lo
+    interior = pack_interior(fmt, entries, dtype=dtype, block=tuple(block),
+                             device=device)
+    del entries
 
     # --- compact boundary block --------------------------------------------
     # boundary rows: rows with at least one external entry, in row order
@@ -427,7 +783,7 @@ def partition_csr(
     bnd_rows[b_shard, b_j] = (b_rows - starts[b_shard]).astype(np.int32)
 
     return DistMat(
-        interior=ELLBlock(data=_to_torch(data, device), col=_to_torch(col, device)),
+        interior=interior,
         data_ext=_to_torch(data_ext, device),
         col_ext=_to_torch(col_ext, device),
         bnd_rows=_to_torch(bnd_rows, device),
@@ -441,8 +797,6 @@ def partition_csr(
 
 def distmat_from_numpy(
     *,
-    data,
-    col,
     data_ext,
     col_ext,
     bnd_rows,
@@ -455,14 +809,37 @@ def distmat_from_numpy(
     n_global: int,
     row_starts,
     n_bnd=(),
+    data=None,
+    col=None,
+    tail_data=None,
+    tail_col=None,
+    tail_row=None,
+    n_tail=(),
+    blocks=None,
+    bcol=None,
+    n_brows: int = 0,
+    bpr: int = 0,
     device="cpu",
 ) -> DistMat:
     """A :class:`DistMat` from another builder's arrays (numpy) and plan
-    metadata — e.g. the leaves of a ``repro.core.partition.DistMat`` with an
-    ELL interior, carried across as they are."""
+    metadata — e.g. the leaves of a ``repro.core.partition.DistMat``,
+    carried across as they are. The interior is a :class:`BCSRBlock` when
+    ``blocks``/``bcol`` are given (``n_brows``, ``bpr``; the tile shape is
+    that of ``blocks``), a :class:`HYBBlock` when the ``tail_*`` arrays are
+    given beside ``data``/``col`` (``n_tail``), else an :class:`ELLBlock`."""
     t = lambda a: _to_torch(np.array(a), device)  # a copy: inputs may be read-only
+    if blocks is not None:
+        _, _, br, bc = np.shape(blocks)
+        interior = BCSRBlock(blocks=t(blocks), bcol=t(bcol), n_brows=int(n_brows),
+                             bpr=int(bpr), br=int(br), bc=int(bc))
+    elif tail_data is not None:
+        interior = HYBBlock(data=t(data), col=t(col), tail_data=t(tail_data),
+                            tail_col=t(tail_col), tail_row=t(tail_row),
+                            n_tail=tuple(int(v) for v in n_tail))
+    else:
+        interior = ELLBlock(data=t(data), col=t(col))
     return DistMat(
-        interior=ELLBlock(data=t(data), col=t(col)),
+        interior=interior,
         data_ext=t(data_ext),
         col_ext=t(col_ext),
         bnd_rows=t(bnd_rows),

@@ -1,6 +1,6 @@
 """Distributed SpMV + halo exchange over the stacked shard layout.
 
-Port of the ELL / 1-D ring path of ``repro.core.spmv``. Every shard lives
+Port of the 1-D ring path of ``repro.core.spmv``. Every shard lives
 on the same device: vectors are ``(S, R)`` stacks, the matrix a stacked
 :class:`~repro_torch.core.partition.DistMat`, and each function is written
 once over all shards (no Python loop over shards). The ring ``ppermute``
@@ -21,9 +21,14 @@ right-hand sides, the vector traffic and the halo payload scale with
 ``r``, and the counts are recorded under the ``*_spmm`` names, as in the
 JAX package.
 
-The ELL matvec is a gather + reduction in PyTorch, as it is a ``jnp``
-gather in the JAX package (no Pallas kernel). Counts are recorded per
-shard, with the per-shard sizes the JAX package's local blocks have.
+The interior matvec dispatches on the storage format
+(:func:`interior_matvec`): the ELL matvec and HYB's ELL prefix are a gather
++ reduction in PyTorch, as they are ``jnp`` gathers in the JAX package (no
+Pallas kernel); the HYB tail is added by a fixed tree of sums
+(``partition.TailPlan``), deterministic on the card; the BCSR interior runs
+the dispatch op ``bcsr_spmv`` / ``bcsr_spmm``, on the card the hand-written
+kernels. Counts are recorded per shard, with the per-shard sizes the JAX
+package's local blocks have.
 """
 
 from __future__ import annotations
@@ -32,9 +37,10 @@ import contextlib
 
 import torch
 
-from repro_torch.core.partition import DistMat, ELLBlock, HaloPlan
+from repro_torch.core.partition import BCSRBlock, DistMat, ELLBlock, HaloPlan, HYBBlock
 from repro_torch.energy import trace
 from repro_torch.energy.accounting import OpCounts
+from repro_torch.kernels import dispatch as kd
 
 
 def _gather(x: torch.Tensor, flat_idx: torch.Tensor, shape, r: int = 0) -> torch.Tensor:
@@ -58,23 +64,12 @@ def _nrhs(x: torch.Tensor, stack_dims: int = 2) -> int:
     return x.shape[-1] if x.dim() > stack_dims else 0
 
 
-def ell_matvec(block: ELLBlock, x: torch.Tensor) -> torch.Tensor:
-    """``y[s, r] = sum_k data[s,r,k] * x[s, col[s,r,k]]`` for stacked
-    ``x`` (S, R), or the SpMM for an (S, R, r) block. Padding (data=0,
-    col=0) is free."""
+def _ell_product(block, x: torch.Tensor) -> torch.Tensor:
+    """The (S, R, k) ELL slots of ``block`` (an ELL interior or HYB's ELL
+    prefix) times stacked ``x``: (S, R), or (S, R, r) for a block."""
     data = block.data
     S, R, k = data.shape
     r = _nrhs(x)
-    b = data.element_size()
-    mat_bytes = float(R * k * (b + block.col.element_size()))
-    trace.record_op(
-        "ell_spmm" if r > 1 else "ell_matvec",
-        OpCounts(
-            flops=2.0 * R * k * max(r, 1),
-            hbm_bytes=mat_bytes + float(x.shape[1] + R) * max(r, 1) * b,
-            hbm_matrix_bytes=mat_bytes,
-        ),
-    )
     if not r:
         return (data * _gather(x, block.flat_col, data.shape)).sum(-1)
     # SpMM one slot at a time: the gathered temporary is (S, R, r), not the
@@ -85,6 +80,92 @@ def ell_matvec(block: ELLBlock, x: torch.Tensor) -> torch.Tensor:
         d = data[:, :, j, None]
         y = g.mul_(d) if y is None else y.addcmul_(g, d)
     return y
+
+
+def ell_matvec(block: ELLBlock, x: torch.Tensor) -> torch.Tensor:
+    """``y[s, r] = sum_k data[s,r,k] * x[s, col[s,r,k]]`` for stacked
+    ``x`` (S, R), or the SpMM for an (S, R, r) block. Padding (data=0,
+    col=0) is free."""
+    S, R, k = block.data.shape
+    r = _nrhs(x)
+    b = block.data.element_size()
+    mat_bytes = float(R * k * (b + block.col.element_size()))
+    trace.record_op(
+        "ell_spmm" if r > 1 else "ell_matvec",
+        OpCounts(
+            flops=2.0 * R * k * max(r, 1),
+            hbm_bytes=mat_bytes + float(x.shape[1] + R) * max(r, 1) * b,
+            hbm_matrix_bytes=mat_bytes,
+        ),
+    )
+    return _ell_product(block, x)
+
+
+def hyb_matvec(block: HYBBlock, x: torch.Tensor) -> torch.Tensor:
+    """HYB interior matvec: the ELL prefix's product plus the COO tail's,
+    for stacked ``x`` (S, R) or an (S, R, r) block.
+
+    The tail's products ``tail_data * x[tail_col]`` are summed per row by
+    the block's :class:`~repro_torch.core.partition.TailPlan` — a fixed
+    tree of gathers and sums over the row-sorted tail, then one
+    ``index_add_`` with each destination row once — instead of a float
+    scatter-add over ``tail_row``: ``tail_row`` repeats within a row, and
+    an atomic scatter-add on the card may add a row's products in another
+    order on every run, changing the last bits and with them iteration
+    counts. Tail padding (data 0, col 0, row 0) is left out. Accounted with
+    the bytes this layout moves: ``k_typ`` slots/row with one 4 B index
+    each, plus value + (col, row) index pairs for the tail.
+    """
+    S, R, k = block.data.shape
+    T = block.tail_data.shape[1]
+    r = _nrhs(x)
+    nr = max(r, 1)
+    b = block.data.element_size()
+    mat_bytes = float(
+        R * k * (b + block.col.element_size())
+        + T * (b + 2 * block.tail_col.element_size())
+    )
+    trace.record_op(
+        "hyb_spmm" if r > 1 else "hyb_matvec",
+        OpCounts(
+            flops=2.0 * (R * k + T) * nr,
+            hbm_bytes=mat_bytes + float(x.shape[1] + R) * nr * b,
+            hbm_matrix_bytes=mat_bytes,
+        ),
+    )
+    y = _ell_product(block, x)
+    plan = block.tail_plan
+    if not len(plan.rows):
+        return y
+    g = _gather(x, block.flat_tail_col, (S * T,), r)
+    v = g * (block.tail_data.reshape(-1)[:, None] if r else block.tail_data.reshape(-1))
+    for idx in plan.levels:
+        v = torch.cat([v, v.new_zeros((1,) + tuple(v.shape[1:]))])[idx].sum(1)
+    flat = (-1,) + tuple(y.shape[2:])
+    out = y.reshape(flat).index_add(0, plan.rows, v[plan.src])
+    return out.view(y.shape)
+
+
+def interior_matvec(interior, x_own: torch.Tensor) -> torch.Tensor:
+    """``y_own = A_interior @ x_own`` for the stacked interior block.
+
+    Dispatches on the storage format: ELL and HYB run their gather forms
+    here; BCSR runs the dispatch op ``bcsr_spmv`` (``bcsr_spmm`` for a
+    column block), which on the card launches the hand-written kernel.
+    All formats return the same (S, R) stack within fp tolerance.
+    """
+    if isinstance(interior, ELLBlock):
+        return ell_matvec(interior, x_own)
+    if isinstance(interior, HYBBlock):
+        return hyb_matvec(interior, x_own)
+    if isinstance(interior, BCSRBlock):
+        op = kd.ops_for(None)
+        fn = op.bcsr_spmm if x_own.dim() == 3 else op.bcsr_spmv
+        return fn(
+            interior.blocks, interior.bcol, x_own, n_brows=interior.n_brows,
+            bpr=interior.bpr, n_out=x_own.shape[1],
+        )
+    raise TypeError(f"unknown interior block type {type(interior).__name__}")
 
 
 def boundary_matvec(
@@ -243,12 +324,12 @@ def spmv_shard(mat: DistMat, x: torch.Tensor, *, overlap: bool | None = None) ->
     if overlap and ring:
         with trace.region(trace.OVERLAP):
             halo = _halo_exchange(x, mat)
-            y = ell_matvec(mat.interior, x)
+            y = interior_matvec(mat.interior, x)
             x_ext = torch.cat([x, halo], dim=1)
             yb = boundary_matvec(mat, x_ext, src_elems=halo.shape[1])
             return _scatter_boundary(mat, y, yb)
     x_ext = gather_ext(mat, x)
-    y = ell_matvec(mat.interior, x)
+    y = interior_matvec(mat.interior, x)
     # ring: the boundary gathers touch only the received halo buffers
     src = x_ext.shape[1] - x.shape[1] if ring else None
     yb = boundary_matvec(mat, x_ext, src_elems=src)

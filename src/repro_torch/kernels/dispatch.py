@@ -2,8 +2,8 @@
 
 Two backends, chosen by the device the operands live on:
 
-* ``cuda``  — the hand-written Hopper kernels (kernels/fused_reductions.py);
-  every CUDA tensor goes here, always.
+* ``cuda``  — the hand-written Hopper kernels (kernels/fused_reductions.py,
+  kernels/spmv_bcsr.py); every CUDA tensor goes here, always.
 * ``torch`` — the plain PyTorch versions (kernels/ref.py), for CPU tensors.
 
 ``ops_for(None)`` follows the operands. An explicit choice only checks:
@@ -31,6 +31,7 @@ import torch
 from repro_torch.energy import trace
 from repro_torch.energy.accounting import OpCounts
 from repro_torch.kernels import fused_reductions as fr
+from repro_torch.kernels import spmv_bcsr as sb
 
 BACKENDS = ("cuda", "torch")
 
@@ -40,7 +41,9 @@ VECTOR_OPS = (
     "block_gram", "block_update", "block_update2",
     "sstep_gram", "sstep_basis", "sstep_update",
 )
-# The SpMV is accounted separately (its traffic is the matrix term).
+# The SpMV is accounted separately (its traffic is the matrix term);
+# bcsr_spmv is the blocked interior matvec of the BCSR-format DistMat and
+# bcsr_spmm its multi-RHS sibling.
 SPMV_OPS = ("stencil_matvec", "stencil_boundary", "bcsr_spmv", "bcsr_spmm")
 
 
@@ -258,6 +261,53 @@ class OpSet:
         _record("block_update2",
                 trace.block_update_counts(n, r, x1.element_size(), terms=2))
         return fr.block_update2(a1, x1, y1, a2, x2, y2)
+
+    # -- SpMV -----------------------------------------------------------------
+
+    def bcsr_spmv(self, blocks, bcol, x, *, n_brows, bpr, n_out=None):
+        """Uniform-layout block-CSR SpMV (the BCSR DistMat interior).
+
+        ``blocks`` is the stacked ``(S, n_brows*bpr, br, bc)`` tile array
+        and ``bcol`` its ``(S, n_brows*bpr)`` block-column ids
+        (``core.sparse.pack_bcsr`` layout, padding tiles zero with
+        ``bcol == 0``); ``x`` is ``(S, R)``, the result ``(S, n_out)``.
+        Accounted per shard as one streaming pass over the tiles, the block
+        ids and the source vector (its length before any padding), writing
+        the ``n_brows*br`` blocked result rows.
+        """
+        self._check("bcsr_spmv", x)
+        _, nbk, br, bc = blocks.shape
+        b = x.element_size()
+        mat_bytes = float(nbk * br * bc * b + nbk * bcol.element_size())
+        _record(
+            "bcsr_spmv",
+            OpCounts(
+                flops=2.0 * nbk * br * bc,
+                hbm_bytes=mat_bytes + float(x.shape[1] * b + n_brows * br * b),
+                hbm_matrix_bytes=mat_bytes,
+            ),
+        )
+        return sb.bcsr_spmv(blocks, bcol, x, n_brows=n_brows, bpr=bpr, n_out=n_out)
+
+    def bcsr_spmm(self, blocks, bcol, x, *, n_brows, bpr, n_out=None):
+        """Multi-RHS :meth:`bcsr_spmv`: ``x`` is an ``(S, R, r)`` block. The
+        tiles and ids are streamed ONCE while vector traffic scales with
+        ``r`` — the amortization the multi-RHS solver exists for, visible
+        in the recorded ``hbm_matrix_bytes``."""
+        self._check("bcsr_spmm", x)
+        _, nbk, br, bc = blocks.shape
+        R, r = x.shape[1], x.shape[-1]
+        b = x.element_size()
+        mat_bytes = float(nbk * br * bc * b + nbk * bcol.element_size())
+        _record(
+            "bcsr_spmm",
+            OpCounts(
+                flops=2.0 * nbk * br * bc * r,
+                hbm_bytes=mat_bytes + float(R * r * b + n_brows * br * r * b),
+                hbm_matrix_bytes=mat_bytes,
+            ),
+        )
+        return sb.bcsr_spmm(blocks, bcol, x, n_brows=n_brows, bpr=bpr, n_out=n_out)
 
 
 def ops_for(kernels: str | None = None) -> OpSet:

@@ -20,7 +20,7 @@ import argparse
 def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--problem", default="poisson7",
-                    help="poisson7 | poisson27")
+                    help="poisson7 | poisson27 | suitesparse names (synthetic analogs)")
     ap.add_argument("--side", type=int, default=24)
     ap.add_argument("--scale", type=float, default=0.01)
     ap.add_argument("--shards", type=int, default=0,

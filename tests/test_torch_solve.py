@@ -312,11 +312,16 @@ def test_config_surface_matches_reference():
     args = parse_args(cfg.to_argv() + ["--side", "9"])
     assert api.SolverConfig.from_args(args) == cfg
     assert api.ProblemSpec.from_args(args) == api.ProblemSpec(side=9)
-    for kw, item in ((dict(variant="sstep"), "item 9"), (dict(fmt="hyb"), "item 8"),
+    for kw, item in ((dict(variant="sstep"), "item 9"),
                      (dict(grid="2x2"), "item 10"), (dict(amg=True), "item 12")):
         with pytest.raises(NotImplementedError, match=item):
             api.solve(api.ProblemSpec(side=6), api.SolverConfig(**kw), device="cpu",
                       verbose=False)
+    # SuiteSparse problems are ported: the spec loads the reference's matrix
+    kw = dict(problem="af_shell8", scale=0.002)
+    (a, name), (ja, jname) = api.ProblemSpec(**kw).load(), japi.ProblemSpec(**kw).load()
+    assert name == jname == "af_shell8"
+    assert (a != ja).nnz == 0 and a.shape == ja.shape
 
 
 def test_zero_iteration_ledger_equals_reference():
