@@ -45,11 +45,20 @@ CUDA card with sm_90a). It
      bits (the HYB tail is added without atomics);
    * poisson7 at side 256 with ``--format bcsr --block 4``: hs within one
      iteration of the ELL count of step 4;
-8. profiles 20 iterations of hs, fcg, pipecg and block-HS with
-   ``torch.profiler`` — and hs on BCSR (poisson7, boneS10), block-HS on
-   BCSR (boneS10) and hs on HYB (G3_circuit): device time per kernel and
+8. s-step CG (communication-avoiding): the three s-step kernels held
+   against their plain versions at the path's shape (s = 2 and 4) and at
+   ragged ones, in float64 and float32, and timed; the matrix-powers SpMV
+   on ``halo_depth = s`` partitions of the poisson7 side-256 matrix against
+   s serial SpMVs on the flat partition (s = 2 and 4); ``api.solve`` with
+   ``variant="sstep"`` at the default s = 2 (both legs) and a seeded
+   right-hand side through the session's solver handle at s = 4 — relres,
+   scipy residual, iterations beside hs's, and each s-step kernel launched
+   once per s-iteration block;
+9. profiles 20 iterations of hs, fcg, pipecg, block-HS and s-step (s = 2)
+   with ``torch.profiler`` — and hs on BCSR (poisson7, boneS10), block-HS
+   on BCSR (boneS10) and hs on HYB (G3_circuit): device time per kernel and
    the device's busy share of the wall time;
-9. prints one JSON line describing every kernel (``launches`` summed over
+10. prints one JSON line describing every kernel (``launches`` summed over
    the solve paths), then, last, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script exits non-zero without the last
@@ -73,6 +82,7 @@ SIDE = 256
 SHARDS = 4
 NRHS = 8  # the block path's right-hand sides (benchmarks/multirhs_scaling.py)
 MAXITER = 1000
+SSTEP_S = (2, 4)  # the s-step path's block sizes: the default, and the handle solve's
 BLOCK = 4  # the BCSR tile of the format paths (the CLI's default --block)
 R_MAIN = SIDE ** 3 // SHARDS  # per-shard length on the main path
 R_RAGGED = R_MAIN - 3
@@ -242,7 +252,7 @@ def kernel_phase(dev):
     return rows
 
 
-def time_row(name, work, kern, plain, lib, abs_err, tname):
+def time_row(name, work, kern, plain, lib, abs_err, tname, tag=""):
     """Time a kernel, its plain version and the library call; the bound is
     the larger of its bytes over the memory rate and its flops over the
     peak rate."""
@@ -256,7 +266,7 @@ def time_row(name, work, kern, plain, lib, abs_err, tname):
         bound_ms=bound, bound_by=desc["bound_by"],
         library_ms=time_ms(lib) if lib is not None else None,
     )
-    print(f"time {name:16s} kernel {row['ms']:.4f} ms  bound {bound:.4f} ms "
+    print(f"time {name:16s} {tag}kernel {row['ms']:.4f} ms  bound {bound:.4f} ms "
           f"({100 * bound / row['ms']:.0f}%)  plain {row['plain_ms']:.4f} ms  "
           f"library {row['library_ms']}", flush=True)
     return row
@@ -339,6 +349,130 @@ def block_kernel_phase(dev):
     return rows
 
 
+def sstep_kernel_phase(dev):
+    """The s-step kernels: parity at the path's shape (S = 4, R = side³/4,
+    s = 2 and 4) and at ragged ones (R - 3 with s = 3 and 8), in float64
+    and float32; timings at the path's shape in float64 (the JSON row at
+    the default s = 2, s = 4 printed beside it)."""
+    import torch
+
+    from repro_torch.kernels import fused_reductions as fr
+    from repro_torch.kernels import ref
+
+    rows = {}
+    g = torch.Generator(device=dev).manual_seed(3)
+    for dt in (torch.float64, torch.float32):
+        tname = str(dt).split(".")[1]
+        for R, s in ((R_MAIN, 2), (R_MAIN, 4), (R_RAGGED, 3), (R_RAGGED, 8)):
+            P, W, Wp, Qp = (torch.randn(SHARDS, R, s, dtype=dt, device=dev, generator=g)
+                            for _ in range(4))
+            x, r = (torch.randn(SHARDS, R, dtype=dt, device=dev, generator=g)
+                    for _ in range(2))
+            B = torch.randn(s, s, dtype=dt, device=dev, generator=g)
+            dinv = torch.rand(s, dtype=dt, device=dev, generator=g) + 0.1
+            a = torch.randn(s, dtype=dt, device=dev, generator=g)
+            gk = fr.sstep_gram(P, W, Wp, r)
+            gp = ref.sstep_gram_ref(P, W, Wp, r)
+            gk2 = fr.sstep_gram(P, W, Wp, r)
+            b1k, b2k = fr.sstep_basis(B, dinv, Qp, P, Wp, W)
+            b1p, b2p = ref.sstep_basis_ref(B, dinv, Qp, P, Wp, W)
+            uxk, urk = fr.sstep_update(a, P, W, x, r)
+            uxp, urp = ref.sstep_update_ref(a, P, W, x, r)
+            torch.cuda.synchronize()
+            check(torch.equal(gk, gk2), "sstep_gram: two launches on the same inputs differ")
+            # |k - p| relative to the sum of the magnitudes each entry adds up
+            checks = [
+                ("sstep_gram", "flat", gk, gp,
+                 ref.sstep_gram_ref(P.abs(), W.abs(), Wp.abs(), r.abs())),
+                ("sstep_basis", "o1", b1k, b1p, P.abs() * dinv + Qp.abs() @ B.abs()),
+                ("sstep_basis", "o2", b2k, b2p, W.abs() * dinv + Wp.abs() @ B.abs()),
+                ("sstep_update", "x", uxk, uxp, x.abs() + P.abs() @ a.abs()),
+                ("sstep_update", "r", urk, urp, r.abs() + W.abs() @ a.abs()),
+            ]
+            errs = {}
+            for name, what, k, p, scale in checks:
+                e = float(((k - p).abs() / scale.clamp(min=torch.finfo(dt).tiny)).max())
+                print(f"parity {name:16s} {what:6s} {tname} S={SHARDS} R={R} s={s}: "
+                      f"{e:.3e} (limit {DOT_TOL[tname]:g})", flush=True)
+                check(e <= DOT_TOL[tname], f"{name} ({what}) disagrees with its plain version")
+                errs[name] = max(errs.get(name, 0.0), float((k - p).abs().max()))
+            del gk, gk2, gp, b1k, b2k, b1p, b2p, uxk, urk, uxp, urp, checks
+            if R == R_MAIN and dt == torch.float64:
+                b = P.element_size()
+                N = SHARDS * R
+                K = 2 * s * s + s + 1
+                # bytes: each input read once, each output written once
+                work = {
+                    "sstep_gram": (((3 * s + 1) * N + SHARDS * K) * b,
+                                   4 * N * s * s + 2 * N * s + 2 * N),
+                    "sstep_basis": ((6 * N * s + s * s + s) * b, 4 * N * s * s + 4 * N * s),
+                    "sstep_update": ((2 * N * s + 4 * N + s) * b, 4 * N * s + 2 * N),
+                }
+                # no single PyTorch call computes the fused results: the Gram's
+                # four, the basis' and the update's two outputs
+                calls = {
+                    "sstep_gram": (lambda: fr.sstep_gram(P, W, Wp, r),
+                                   lambda: ref.sstep_gram_ref(P, W, Wp, r), None),
+                    "sstep_basis": (lambda: fr.sstep_basis(B, dinv, Qp, P, Wp, W),
+                                    lambda: ref.sstep_basis_ref(B, dinv, Qp, P, Wp, W),
+                                    None),
+                    "sstep_update": (lambda: fr.sstep_update(a, P, W, x, r),
+                                     lambda: ref.sstep_update_ref(a, P, W, x, r), None),
+                }
+                for name, (kern, plain, lib) in calls.items():
+                    row = time_row(name, work[name], kern, plain, lib, errs[name], tname,
+                                   tag=f"s={s} ")
+                    if s == SSTEP_S[0]:
+                        rows[name] = row
+            del P, W, Wp, Qp, x, r
+            torch.cuda.empty_cache()
+    return rows
+
+
+def matrix_powers_phase(sess, dev):
+    """``matrix_powers`` on the ``halo_depth = s`` ELL partition against s
+    serial ``spmv_shard`` calls on the flat partition, for a seeded x:
+    max |difference| over max |A^j x| <= 1e-12 for every power."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.partition import pad_vector
+    from repro_torch.core.spmv import matrix_powers, spmv_shard
+
+    flat = sess.matrix()
+    x = np.random.default_rng(4).standard_normal(sess.n)
+    for s in SSTEP_S:
+        deep = sess.matrix(halo_depth=s)
+        key = sess.matrix_key("ell", BLOCK, s)
+        t0 = time.perf_counter()
+        got = matrix_powers(deep, torch.from_numpy(pad_vector(x, deep)).to(dev), s)
+        torch.cuda.synchronize()
+        t_mp = time.perf_counter() - t0
+        v = torch.from_numpy(pad_vector(x, flat)).to(dev)
+        errs = []
+        for j in range(s):
+            v = spmv_shard(flat, v, overlap=False)
+            errs.append(float((got[j] - v).abs().max() / v.abs().max()))
+        print(f"matrix_powers s={s}: halo_depth={deep.halo_depth} widths={deep.plan.widths} "
+              f"ghost rows {deep.n_ghost_rows}/shard, partition "
+              f"{sess.partition_s[key]:.2f} s, stored_bytes={deep.stored_bytes()} "
+              f"(flat {flat.stored_bytes()}); first call {t_mp * 1e3:.1f} ms; "
+              f"max|MP - serial|/max|A^j x| = {[f'{e:.2e}' for e in errs]}", flush=True)
+        check(max(errs) <= 1e-12, f"matrix_powers s={s} disagrees with serial SpMVs")
+        del got, v
+
+
+def sstep_expected(s):
+    """Launches of one s-step solve with ``it`` iterations, run ``1 + rep``
+    times: each kernel once per s-iteration block (a solve that runs no
+    block still runs its body once, as the JAX package charges it)."""
+    def expected(it, rep):
+        blocks = max(it // s, 1)
+        return {k: (f"(1 + {rep}) x max({it} / {s}, 1)", (1 + rep) * blocks)
+                for k in ("sstep_gram", "sstep_basis", "sstep_update")}
+    return expected
+
+
 def later_paths(api):
     """``(tag, config, expected launches)`` of the paths after hs. fcg and
     pipecg run their loop iters - 1 times (the pre-loop step is iteration
@@ -407,7 +541,7 @@ def solve_path(tag, api, spec, config, sess, launches, expected):
 
 
 def profile_phase(sess, dev, variant: str = "hs", nrhs: int = 1, iters: int = 20,
-                  fmt: str = "ell", seeded: bool = False):
+                  fmt: str = "ell", seeded: bool = False, s: int = 2):
     """Where an iteration's time goes: ``iters`` iterations of a path's
     solver on the ``fmt`` partition under ``torch.profiler``; prints device
     time per kernel name (per iteration) and the device's busy share of the
@@ -421,7 +555,7 @@ def profile_phase(sess, dev, variant: str = "hs", nrhs: int = 1, iters: int = 20
     from repro_torch.core.cg import default_rhs_block, make_block_solver, make_solver
     from repro_torch.core.partition import pad_block, pad_vector
 
-    mat = sess.matrix(fmt, BLOCK)
+    mat = sess.matrix(fmt, BLOCK, halo_depth=s if variant == "sstep" else 1)
     rng = np.random.default_rng(0)
     # a tolerance far below reach: exactly `iters` iterations run
     if nrhs > 1:
@@ -430,7 +564,8 @@ def profile_phase(sess, dev, variant: str = "hs", nrhs: int = 1, iters: int = 20
              else default_rhs_block(sess.n, nrhs))
         b = torch.from_numpy(pad_block(B, mat)).to(dev)
     else:
-        solve = make_solver(mat, variant=variant, tol=1e-200, maxiter=iters, device=dev)
+        solve = make_solver(mat, variant=variant, s=s, tol=1e-200, maxiter=iters,
+                            device=dev)
         bv = rng.standard_normal(sess.n) if seeded else np.ones(sess.n)
         b = torch.from_numpy(pad_vector(bv, mat)).to(dev)
     x0 = torch.zeros_like(b)
@@ -451,6 +586,7 @@ def profile_phase(sess, dev, variant: str = "hs", nrhs: int = 1, iters: int = 20
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy_us = sum(t for _, t, _ in rows)
     label = f"{variant} r={nrhs}" if nrhs > 1 else variant
+    label += f" s={s}" if variant == "sstep" else ""
     label += f" [{sess.key[0]}, {mat.fmt}]"
     print(f"profile: {iters} {label} loop iterations, wall {wall * 1e3 / iters:.3f} ms/iter, "
           f"device busy {busy_us / 1e3 / iters:.3f} ms/iter "
@@ -570,19 +706,19 @@ def bcsr_kernel_phase(dev, mat):
     return rows
 
 
-def handle_solve(tag, sess, mat, b_np, dev, launches):
-    """hs through the session's solver handle for ``b_np`` (the path a
-    caller with their own right-hand side takes): one warm-up solve, then a
-    timed one with every launch count set to 0 just before and read just
-    after: relres and an independent
-    scipy residual, and each kernel's launches against the count the
-    iterations imply. Returns the iteration count."""
+def handle_solve(tag, sess, mat, b_np, dev, launches, variant="hs", s=2):
+    """hs (or ``variant``, with block size ``s`` for s-step) through the
+    session's solver handle for ``b_np`` (the path a caller with their own
+    right-hand side takes): one warm-up solve, then a timed one with every
+    launch count set to 0 just before and read just after: relres and an
+    independent scipy residual, and each kernel's launches against the
+    count the iterations imply. Returns the iteration count."""
     import numpy as np
     import torch
 
     from repro_torch.core.partition import pad_vector, unpad_vector
 
-    h = sess.solver(mat, tol=1e-8, maxiter=MAXITER)
+    h = sess.solver(mat, variant=variant, s=s, tol=1e-8, maxiter=MAXITER)
     bp = torch.from_numpy(pad_vector(b_np, mat)).to(dev)
     x0 = torch.zeros_like(bp)
     h.fn(bp, x0)  # warm-up: the first HYB SpMV derives its tail plan on the host
@@ -599,11 +735,15 @@ def handle_solve(tag, sess, mat, b_np, dev, launches):
     relres = float(res.rel_residual)
     a = sess.a
     sres = float(np.linalg.norm(b_np - a @ x) / np.linalg.norm(b_np))
-    print(f"{tag}: format={mat.fmt} iters={it} relres={relres:.3e} scipy_relres={sres:.3e} "
-          f"wall={wall:.4f} s per_iter={1e3 * wall / max(it, 1):.3f} ms", flush=True)
+    print(f"{tag}: format={mat.fmt} variant={variant} iters={it} relres={relres:.3e} "
+          f"scipy_relres={sres:.3e} wall={wall:.4f} s per_iter={1e3 * wall / max(it, 1):.3f} ms",
+          flush=True)
     check(relres <= 1e-8, f"{tag}: relres {relres} > 1e-8")
     check(sres <= 1e-7, f"{tag}: scipy residual {sres} > 1e-7")
-    want = {k: (f"{it}", it) for k in ("fused_dots_n", "fused_axpy2_dots", "fused_axpy")}
+    if variant == "sstep":
+        want = sstep_expected(s)(it, 0)
+    else:
+        want = {k: (f"{it}", it) for k in ("fused_dots_n", "fused_axpy2_dots", "fused_axpy")}
     if mat.fmt == "bcsr":  # one SpMV before the loop, one per iteration
         want["bcsr_spmv"] = (f"1 + {it}", 1 + it)
     for name, n in got.items():
@@ -753,6 +893,8 @@ def main():
     torch.cuda.empty_cache()
     rows.update(block_kernel_phase(dev))
     torch.cuda.empty_cache()
+    rows.update(sstep_kernel_phase(dev))
+    torch.cuda.empty_cache()
 
     # --- the main path: hs CG + the Ginkgo-analog leg, float64 ------------
     spec = api.ProblemSpec("poisson7", side=SIDE, shards=SHARDS)
@@ -797,6 +939,28 @@ def main():
     print(f"per_solve_wall_s: block-HS r={NRHS} {e_b['per_solve_wall_s']:.4f} s, "
           f"hs r=1 {hs_wall:.4f} s", flush=True)
 
+    # --- s-step CG: matrix powers, api.solve (s = 2), the handle (s = 4) --
+    torch.cuda.empty_cache()
+    matrix_powers_phase(sess, dev)
+    s0 = SSTEP_S[0]
+    rep_ss = solve_path("sstep", api, spec, api.SolverConfig(variant="sstep", maxiter=MAXITER),
+                        sess, launches, sstep_expected(s0))
+    led = rep_ss.ledger
+    check((led["halo_depth"], led["s"]) == (s0, s0), f"sstep payload {led.get('halo_depth')}")
+    it_ss = rep_ss.summary["BCMGX-analog"]["iters"]
+    w_ss = rep_ss.summary["BCMGX-analog"]["wall_s"]
+    print(f"sstep s={s0}: iters {it_ss} (hs {hs_iters}), per_solve {w_ss:.4f} s "
+          f"({1e3 * w_ss / it_ss:.3f} ms/iter) against hs {hs_wall:.4f} s "
+          f"({1e3 * hs_wall / hs_iters:.3f} ms/iter)", flush=True)
+    check(it_ss % s0 == 0, f"sstep iterations {it_ss} not a multiple of {s0}")
+    s1 = SSTEP_S[1]
+    b5 = np.random.default_rng(5).standard_normal(sess.n)
+    it_hs5 = handle_solve("hs-seeded", sess, sess.matrix(), b5, dev, launches)
+    it4 = handle_solve(f"sstep-s{s1}-seeded", sess, sess.matrix(halo_depth=s1), b5, dev,
+                       launches, variant="sstep", s=s1)
+    print(f"sstep s={s1} seeded: iters {it4} against hs {it_hs5} on the same b", flush=True)
+    check(it4 % s1 == 0, f"sstep s={s1} iterations {it4} not a multiple of {s1}")
+
     # --- the interior formats -------------------------------------------
     torch.cuda.empty_cache()
     rep_b = solve_path("p7-bcsr", api, spec,
@@ -819,7 +983,7 @@ def main():
     for name, n in launches.items():
         rows[name]["launches"] = n
 
-    for variant, nrhs in (("hs", 1), ("fcg", 1), ("pipecg", 1), ("hs", NRHS)):
+    for variant, nrhs in (("hs", 1), ("fcg", 1), ("pipecg", 1), ("hs", NRHS), ("sstep", 1)):
         profile_phase(sess, dev, variant, nrhs)
     profile_phase(sess, dev, "hs", 1, fmt="bcsr")
     profile_phase(sess_bone, dev, "hs", 1, fmt="auto", seeded=True)

@@ -1,7 +1,8 @@
 """Typed public API of the port: problem + config dataclasses, warm sessions.
 
 Port of ``repro.api`` for the paths ported so far: ``op="cg"`` with the
-``hs``, ``fcg`` and ``pipecg`` variants, multi-RHS block-HS CG
+``hs``, ``fcg``, ``pipecg`` and ``sstep`` variants (s-step CG on a
+``halo_depth = s`` partition), multi-RHS block-HS CG
 (``nrhs > 1``), and ``op="spmv"``, on the Poisson cubes and the SuiteSparse
 analogs, with an ELL, HYB or BCSR interior (``fmt``, or ``"auto"``: the
 stored-bytes cost model picks), with the BCMGX-analog leg and the
@@ -278,8 +279,6 @@ class SolverConfig:
     def check_ported(self):
         """Raise ``NotImplementedError`` for a valid config the port cannot
         run yet, naming its ``ROADMAP.md`` queue item."""
-        if self.variant == "sstep":
-            _not_ported("s-step CG", "item 9")
         if self.amg or self.amgx_analog:
             _not_ported("AMG preconditioning", "item 12")
         if self.autotune:
@@ -321,7 +320,8 @@ class SolverSession:
     device, and keeps what is expensive to derive from it:
 
     * ``mats`` — ``(fmt, block) -> DistMat`` partitions on the session's
-      device (the all-gather Ginkgo-analog partition under
+      device (``(fmt, block, ("halo", k))`` for a ``halo_depth = k > 1``
+      partition; the all-gather Ginkgo-analog partition under
       ``("allgather", 0)``), with ``partition_s`` the seconds each took;
     * solver handles (``core.cg.solver_handle``), each carrying the energy
       trace captured at its first solve.
@@ -359,9 +359,20 @@ class SolverSession:
             self.partitions += 1
         return self.mats[k]
 
-    def matrix(self, fmt: str = "ell", block: int = 4):
-        """The DistMat for (fmt, block); partitions on first use."""
-        return self._partition((fmt, int(block)), fmt=fmt, block=(block, block))
+    @staticmethod
+    def matrix_key(fmt: str = "ell", block: int = 4, halo_depth: int = 1) -> tuple:
+        """The ``mats`` key of a partition: depth-tagged for a deep halo."""
+        k = (fmt, int(block))
+        depth = max(int(halo_depth), 1)
+        return k + (("halo", depth),) if depth > 1 else k
+
+    def matrix(self, fmt: str = "ell", block: int = 4, *, halo_depth: int = 1):
+        """The DistMat for (fmt, block); partitions on first use.
+        ``halo_depth > 1`` builds the s-step ghost zones under a
+        depth-tagged key."""
+        depth = max(int(halo_depth), 1)
+        return self._partition(self.matrix_key(fmt, block, depth), fmt=fmt,
+                               block=(block, block), halo_depth=depth)
 
     def naive_matrix(self):
         """The padded-global (all-gather) partition of the naive baseline."""
@@ -369,13 +380,13 @@ class SolverSession:
 
     def solver(self, mat, *, op: str = "cg", nrhs: int = 1,
                variant: str = "hs", precond=None, tol: float = 1e-8,
-               maxiter: int = 100, overlap: bool = True):
+               maxiter: int = 100, overlap: bool = True, s: int = 2):
         """Cached :class:`~repro_torch.core.cg.SolverHandle` for (mat, config)."""
         from repro_torch.core.cg import solver_handle
 
         return solver_handle(
             mat, op=op, nrhs=nrhs, variant=variant, precond=precond,
-            tol=tol, maxiter=maxiter, overlap=overlap, device=self.device,
+            tol=tol, maxiter=maxiter, s=s, overlap=overlap, device=self.device,
             cache=self.handles,
         )
 
@@ -502,8 +513,12 @@ def solve(
         format=config.fmt, nrhs=config.nrhs, solvers={}, meta=ledger_meta(dev),
     )
     nrhs = config.nrhs
-    mkey = (config.fmt, config.block)
-    mat = session.matrix(config.fmt, config.block)
+    sstep_s = config.s or 2  # s-step block size (used iff variant == sstep)
+    # an s-step solve partitions with halo_depth=s so the matrix-powers
+    # basis pays one widened exchange per s-iteration block
+    depth = sstep_s if (config.variant == "sstep" and config.op == "cg") else 1
+    mkey = session.matrix_key(config.fmt, config.block, depth)
+    mat = session.matrix(config.fmt, config.block, halo_depth=depth)
     # the naive baseline keeps the flat ELL layout and is single-RHS by
     # definition: its (expensive) all-gather partition is built only when
     # a naive leg will run
@@ -517,6 +532,11 @@ def solve(
     payload["resolved_format"] = mat.fmt
     payload["interior_stored_bytes"] = int(mat.interior_stored_bytes())
     payload["stored_bytes"] = int(mat.stored_bytes())
+    if depth > 1:
+        # s-step run: the ghost-zone depth actually built (an all-gather
+        # fallback reports 1: the matrix-powers path did not engage)
+        payload["halo_depth"] = int(mat.halo_depth)
+        payload["s"] = int(sstep_s)
 
     dt = mat.dtype
     if nrhs > 1:
@@ -580,7 +600,7 @@ def solve(
     legs = [
         ("BCMGX-analog", mat, mkey, session.solver(
             mat, nrhs=nrhs, variant=config.variant, tol=config.tol,
-            maxiter=config.maxiter, overlap=overlap,
+            maxiter=config.maxiter, overlap=overlap, s=sstep_s,
         )),
     ]
     if need_naive:

@@ -10,10 +10,14 @@ The variants ported so far:
 * ``pipecg`` — the Ghysels–Vanroose pipelined CG: ONE fused all-reduce per
   iteration, issued before the SpMV that does not depend on it (with
   ``overlap`` both land in the ``"overlap"`` energy region);
+* ``sstep``  — s-step CG (Chronopoulos–Gear): a block of s iterations
+  advances with ONE fused all-reduce (``[PᵀW | WpᵀP | Pᵀr | rᵀr]``); with
+  the identity preconditioner and a ``halo_depth >= s`` partition its
+  monomial basis comes from the matrix-powers SpMV (ONE widened halo
+  exchange per block), the basis columns are rescaled by their A-norms,
+  and a non-finite block solve freezes x/r and ends the loop;
 * block-HS CG for ``(S, R, r)`` right-hand-side blocks
   (:func:`make_block_solver`), with deflation and a ridge.
-
-s-step CG is a later slice and raises ``NotImplementedError``.
 
 The JAX package runs the solver inside one jitted ``shard_map`` with a
 ``lax.while_loop``; the port runs the same bodies eagerly over the stacked
@@ -25,8 +29,9 @@ The JAX package runs the solver inside one jitted ``shard_map`` with a
   on a CUDA device the hand-written Hopper kernels;
 * each loop test (``rr > tol2``, or ``any(diag(RR) > tol2)`` for the block
   body) reads one value back to the host: one device-to-host sync per
-  iteration (the only one: the step scalars and the ``(r, r)`` step blocks
-  stay on the device). Capturing the body in a CUDA graph would remove it
+  iteration — per s-iteration block for ``sstep`` — and the only one: the
+  step scalars and the ``(r, r)`` / ``(s, s)`` step blocks stay on the
+  device. Capturing the body in a CUDA graph would remove it
   and is left to a later slice.
 
 Counts are recorded eagerly: the iteration section is entered once per
@@ -46,8 +51,8 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from repro_torch.core.partition import DistMat
-from repro_torch.core.spmv import overlap_default, spmv_shard
-from repro_torch.core.vectors import all_reduce, fused_blocks, fused_dots
+from repro_torch.core.spmv import matrix_powers, overlap_default, spmv_shard
+from repro_torch.core.vectors import all_reduce, fused_blocks, fused_dots, pdot
 from repro_torch.energy import trace
 from repro_torch.kernels import dispatch as kd
 from repro_torch.launch.mesh import resolve_device
@@ -344,6 +349,117 @@ def _pipecg_body(A, pre: Preconditioner, pdata, b, x0, *, tol, maxiter, ops,
     return c[1], c[0], c[11], bb
 
 
+def _sstep_body(A, pre: Preconditioner, pdata, b, x0, *, tol, maxiter, s, ops,
+                mat=None):
+    """s-step CG (Chronopoulos–Gear): ONE fused all-reduce per s iterations.
+
+    Monomial basis P = [u, (MA)u, ..., (MA)^{s-1}u] with u = M r, conjugated
+    against the previous block with Gram algebra alone. With the identity
+    preconditioner and a ``mat`` partitioned ``halo_depth >= s`` (any depth
+    on one shard, which has no halo), the basis comes from
+    :func:`~repro_torch.core.spmv.matrix_powers`: ONE widened exchange per
+    block instead of s. Otherwise (a real preconditioner, a shallow halo,
+    the all-gather layout) the s applications run one after the other; the
+    JAX package traces that loop once under ``trace.repeated(s)``, which
+    records the energy counts the s eager applications here record (the
+    sweep ledger here counts each executed SpMV call, the JAX package's
+    the one traced call).
+
+    Each block launches 3 kernels on the card outside the SpMVs: the fused
+    Gram reduction (``sstep_gram``), the A-conjugation with the column
+    normalization (``sstep_basis``) and the x/r update (``sstep_update``).
+    The basis columns are rescaled by their A-norms (van der Sluis, from
+    ``diag(PᵀW)``) before the ``(s, s)`` solves, which run on the device
+    (``torch.linalg.solve_ex``: no host sync); a non-finite step freezes
+    x/r and ends the loop. The block's counts are recorded at their
+    per-iteration average (``trace.repeated(1/s)``), as the JAX package
+    records its once-traced block. The loop test costs one host sync per
+    block; ``iters`` advances by s and the returned ``rr`` is the residual
+    norm of the last block's entry, as in the JAX package.
+    """
+    dt = b.dtype
+    with trace.region("spmv"):
+        r = b - A(x0)
+    with trace.region("reductions"):
+        bb = pdot(b, b)
+    tol2 = tol * tol * bb
+    eye = torch.eye(s, dtype=dt, device=b.device)
+
+    # the matrix-powers path needs ghost zones covering all s applications
+    # (a lone shard has no halo at all — any depth works there)
+    use_mp = (
+        mat is not None
+        and pre.is_identity
+        and mat.plan.mode != "allgather"
+        and (not mat.plan.shifts or mat.halo_depth >= s)
+    )
+
+    def build_basis(r):
+        if use_mp:
+            Ws = matrix_powers(mat, r, s)  # ONE widened exchange: [Ar, ..., A^s r]
+            return torch.stack([r] + Ws[:-1], dim=-1), torch.stack(Ws, dim=-1)
+        Ps, Ws = [], []
+        u = r
+        for _ in range(s):
+            with trace.region("precond"):
+                p = pre.apply(pdata, u)
+            with trace.region("spmv"):
+                u = A(p)
+            Ps.append(p)
+            Ws.append(u)
+        return torch.stack(Ps, dim=-1), torch.stack(Ws, dim=-1)
+
+    def block(c):
+        i, ok, x, r, Qp, Wp, Gqq, rr = c
+        Pb, Wb = build_basis(r)
+        # ONE fused all-reduce: [P^T W (s*s) | W_prev^T P (s*s) | P^T r (s) | rr]
+        with trace.region("reductions"):
+            flat = fused_blocks([ops.sstep_gram(Pb, Wb, Wp, r)])
+        Gpp = flat[: s * s].reshape(s, s)
+        C = flat[s * s : 2 * s * s].reshape(s, s)
+        g = flat[2 * s * s : 2 * s * s + s]
+        rr = flat[-1]
+        # van der Sluis: rescale the basis columns by their A-norms (raw
+        # monomial columns grow like rho(A)^j)
+        d = torch.diagonal(Gpp)
+        pos = d > 0
+        dinv = torch.where(pos, torch.rsqrt(torch.where(pos, d, torch.ones_like(d))),
+                           torch.ones_like(d))
+        Gpp = Gpp * (dinv[:, None] * dinv[None, :])
+        C = C * dinv[None, :]
+        g = g * dinv
+        # A-conjugate against the previous block: B = Gqq^{-1} C
+        B = torch.linalg.solve_ex(Gqq + 1e-300 * eye, C)[0]
+        with trace.region("reductions"):
+            # Q = Pb D - Qp B ; WQ = Wb D - Wp B — ONE fused pass
+            Q, WQ = ops.sstep_basis(B, dinv, Qp, Pb, Wp, Wb)
+        Gq = Gpp - B.T @ C - C.T @ B + B.T @ Gqq @ B
+        # Q^T r == g because r is orthogonal to the previous block
+        a = torch.linalg.solve_ex(Gq + 1e-300 * eye, g)[0]
+        # breakdown guard: a non-finite step (the basis lost independence)
+        # freezes x/r and stops the loop
+        fin = torch.isfinite(a).all() & torch.isfinite(B).all()
+        a = torch.where(fin, a, torch.zeros_like(a))
+        with trace.region("reductions"):
+            # x += Q a ; r -= WQ a — ONE fused pass
+            x, r = ops.sstep_update(a, Q, WQ, x, r)
+        return (i + s, ok & fin, x, r, Q, WQ, Gq, rr)
+
+    def body(c):
+        # one block stands for s iterations: record its per-iteration average
+        with kd.ledger_section("iteration"), trace.repeated(1.0 / s):
+            return block(c)
+
+    def cond(c):
+        i, ok, x, r, Qp, Wp, Gqq, rr = c
+        return i < maxiter and bool(ok & (rr > tol2))  # one device-to-host sync
+
+    Q0 = torch.zeros(tuple(b.shape) + (s,), dtype=dt, device=b.device)
+    ok0 = torch.ones((), dtype=torch.bool, device=b.device)
+    c = _loop(cond, body, (0, ok0, x0, r, Q0, Q0, eye, bb))
+    return c[2], c[0], c[7], bb
+
+
 def _block_hs_body(A, B, X0, *, tol, maxiter, ops):
     """Breakdown-guarded block Hestenes–Stiefel CG for (S, R, r) RHS blocks.
 
@@ -420,7 +536,8 @@ def _block_hs_body(A, B, X0, *, tol, maxiter, ops):
     return c[1], c[0], c[5], torch.diagonal(c[4]), bb
 
 
-_BODIES = {"hs": _hs_body, "fcg": _fcg_body, "pipecg": _pipecg_body}
+_BODIES = {"hs": _hs_body, "fcg": _fcg_body, "pipecg": _pipecg_body,
+           "sstep": _sstep_body}
 VARIANTS = tuple(_BODIES)
 
 
@@ -431,6 +548,7 @@ def make_solver(
     precond: Preconditioner | None = None,
     tol: float = 1e-8,
     maxiter: int = 100,
+    s: int = 2,
     kernels: str | None = None,
     overlap: bool = True,
     device=None,
@@ -439,13 +557,15 @@ def make_solver(
 
     Args:
         mat: the stacked distributed matrix (``partition_csr``); moved to
-            ``device`` if it is elsewhere.
-        variant: ``"hs"`` | ``"fcg"`` | ``"pipecg"`` (``"sstep"`` is not
-            ported yet).
+            ``device`` if it is elsewhere. For ``variant="sstep"`` a
+            ``halo_depth >= s`` partition lets the basis use the
+            matrix-powers SpMV.
+        variant: ``"hs"`` | ``"fcg"`` | ``"pipecg"`` | ``"sstep"``.
         precond: a :class:`Preconditioner` (None = identity).
         tol: relative residual target; convergence is declared at
             ``||r||^2 <= tol^2 * ||b||^2``.
-        maxiter: iteration cap.
+        maxiter: iteration cap (an s-step block counts as ``s`` iterations).
+        s: block size for ``variant="sstep"`` (ignored otherwise).
         kernels: None/'auto' (follow the device) or one of
             ``kernels.dispatch.BACKENDS`` (checked against the operands).
         overlap: communication-hiding schedule (default on): the SpMV runs
@@ -460,10 +580,7 @@ def make_solver(
         the executed iteration count, and ``||r||^2`` / ``||b||^2``.
     """
     if variant not in _BODIES:
-        raise NotImplementedError(
-            f"CG variant {variant!r} is not ported to repro_torch yet "
-            "(ROADMAP.md, queue 1, item 9)"
-        )
+        raise ValueError(f"unknown CG variant {variant!r}; want one of {VARIANTS}")
     dev = resolve_device(device)
     mat = mat.to(dev)
     pre = precond or identity_precond()
@@ -471,6 +588,10 @@ def make_solver(
     kw = dict(tol=tol, maxiter=maxiter, ops=kd.ops_for(kernels))
     if variant == "pipecg":
         kw["overlap"] = overlap
+    if variant == "sstep":
+        # the body takes the matrix itself: its basis can route through the
+        # matrix-powers SpMV (one widened halo exchange per block)
+        kw.update(s=int(s), mat=mat)
 
     def solve(b: torch.Tensor, x0: torch.Tensor) -> SolveResult:
         A = lambda v: spmv_shard(mat, v, overlap=overlap)
@@ -630,6 +751,7 @@ def solver_handle(
     precond: Preconditioner | None = None,
     tol: float = 1e-8,
     maxiter: int = 100,
+    s: int = 2,
     kernels: str | None = None,
     overlap: bool = True,
     device=None,
@@ -645,7 +767,7 @@ def solver_handle(
     key = (
         id(mat), str(op), int(max(nrhs, 1)), str(variant),
         None if precond is None else id(precond),
-        float(tol), int(maxiter), kernels, bool(overlap), str(dev),
+        float(tol), int(maxiter), int(s), kernels, bool(overlap), str(dev),
     )
     store = _HANDLES if cache is None else cache
     h = store.get(key)
@@ -671,7 +793,7 @@ def solver_handle(
     else:
         fn = make_solver(
             mat, variant=variant, precond=precond, tol=tol, maxiter=maxiter,
-            kernels=kernels, overlap=overlap, device=dev,
+            s=s, kernels=kernels, overlap=overlap, device=dev,
         )
     h = SolverHandle(fn=fn, key=key, mat=mat, precond=precond)
     store[key] = h

@@ -13,14 +13,18 @@ Port of the 1-D ring path of ``repro.core.partition``:
   (``fmt="auto"``, ``roofline/format_model.py``);
 * the halo exchange is planned as ring shifts (every off-shard coupling
   reaches at most ``max_ring`` shards away) or falls back to an all-gather
-  of the whole vector ("allgather" mode, also the Ginkgo-analog layout).
+  of the whole vector ("allgather" mode, also the Ginkgo-analog layout);
+* ``halo_depth=k`` widens the halo to the depth-k closure of the boundary
+  coupling and replicates the rows of the depth ``< k`` ghosts (the
+  ghost-row block), so ONE exchange feeds k chained SpMVs — the s-step
+  CG's matrix-powers basis (``core/spmv.matrix_powers``).
 
 The builder here is **vectorised**: every step is a numpy array operation
 over all rows and entries at once, with no per-row Python loop, and it
 produces the same arrays, byte for byte, as the JAX package's builder
 (which walks the rows one by one and so takes minutes at the sizes the
-port runs on the card). 2-D process grids and deep halos are later
-slices of the port.
+port runs on the card). 2-D process grids are a later slice of the
+port.
 
 Shards are stacked on one device: every array carries a leading ``S`` axis
 and the solver bodies run over all shards at once (core/spmv.py).
@@ -361,6 +365,18 @@ class DistMat:
     * ``send_sel``          — (S, sum(widths)) int32: per shift k, the slice
       ``send_sel[:, off_k : off_k + widths[k]]`` lists the local indices each
       shard sends for that shift.
+    * ``ghost_data/ghost_col/ghost_pos`` — the ghost-row block of a deep-halo
+      partition (``halo_depth > 1``): the rows of the depth ``< halo_depth``
+      ghost columns, replicated onto the shard as (S, G, kg) padded-ELL rows
+      whose column ids index ``x_ext``; ``ghost_pos`` (S, G) is each ghost
+      row's own position in ``x_ext``, where
+      ``core/spmv.matrix_powers`` writes its recomputed value. Padding rows
+      carry ``ghost_pos == ext_len`` (dropped). ``partition_csr`` builds
+      0-sized arrays at depth 1; None (a carried partition without them)
+      means the same.
+    * ``halo_depth``        — ghost-zone depth k: one widened exchange
+      delivers the closure of the boundary coupling to depth k, enough for
+      k chained SpMVs.
 
     Padding: data == 0, col == 0 everywhere (gathers stay in bounds and
     contribute nothing).
@@ -375,6 +391,10 @@ class DistMat:
     n_global: int
     row_starts: tuple[int, ...]
     n_bnd: tuple[int, ...] = ()
+    ghost_data: torch.Tensor | None = None
+    ghost_col: torch.Tensor | None = None
+    ghost_pos: torch.Tensor | None = None
+    halo_depth: int = 1
 
     @property
     def fmt(self) -> str:
@@ -397,6 +417,16 @@ class DistMat:
     def device(self) -> torch.device:
         return self.interior.device
 
+    @property
+    def n_ghost_rows(self) -> int:
+        """Padded ghost-row-block rows per shard (G; 0 unless deep halo)."""
+        return 0 if self.ghost_pos is None else self.ghost_pos.shape[-1]
+
+    @property
+    def ghost_slots(self) -> int:
+        """Stored ghost-row value slots (padding included, all shards)."""
+        return 0 if self.ghost_data is None else _size(self.ghost_data)
+
     # -- storage accounting ---------------------------------------------------
 
     @property
@@ -409,10 +439,12 @@ class DistMat:
         return self.interior.slots * value_bytes + self.interior.index_bytes
 
     def stored_bytes(self, value_bytes: int = 8) -> int:
-        """Whole-matrix resident bytes: interior + boundary block."""
+        """Whole-matrix resident bytes: interior + boundary block + (deep
+        halos only) the replicated ghost-row block."""
         return (
             self.interior_stored_bytes(value_bytes)
             + _size(self.data_ext) * (value_bytes + 4)
+            + self.ghost_slots * (value_bytes + 4)
         )
 
     # -- device-side helpers (derived once, cached) --------------------------
@@ -444,16 +476,38 @@ class DistMat:
         offs = torch.arange(S, dtype=torch.int32, device=self.device) * self.n_own_pad
         return (self.bnd_rows + offs[:, None]).reshape(-1)
 
+    @functools.cached_property
+    def flat_ghost_col(self) -> torch.Tensor:
+        """(S*G*kg,) int32 ids of the ghost-row entries into the flattened
+        stacked x_ext (S, ext_len)."""
+        offs = torch.arange(self.n_shards, dtype=torch.int32, device=self.device)
+        return (self.ghost_col + offs[:, None, None] * self.plan.ext_len).reshape(-1)
+
+    @functools.cached_property
+    def ghost_scatter(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """``(src, dst)``: the genuine ghost rows (flat ids into the
+        (S*G,) ghost results) and their halo slots (flat ids into the
+        stacked (S, ext_len - R) halo); padding rows are left out."""
+        R, halo_len = self.n_own_pad, self.plan.ext_len - self.n_own_pad
+        pos = self.ghost_pos.long()
+        S, G = pos.shape
+        src = torch.nonzero((pos < self.plan.ext_len).reshape(-1)).reshape(-1)
+        offs = torch.arange(S, device=self.device)[:, None] * halo_len
+        dst = (pos - R + offs).reshape(-1)[src]
+        return src, dst
+
     def to(self, device) -> "DistMat":
         """This matrix with every tensor on ``device`` (self if already there)."""
         device = torch.device(device)
         if self.device == device:
             return self
-        mv = lambda t: t.to(device)
+        mv = lambda t: None if t is None else t.to(device)
         return dataclasses.replace(
             self, interior=self.interior.to(device),
             data_ext=mv(self.data_ext), col_ext=mv(self.col_ext),
             bnd_rows=mv(self.bnd_rows), send_sel=mv(self.send_sel),
+            ghost_data=mv(self.ghost_data), ghost_col=mv(self.ghost_col),
+            ghost_pos=mv(self.ghost_pos),
         )
 
 
@@ -672,15 +726,25 @@ def partition_csr(
     canonical CSR matrix (no duplicate entries), as every builder of the
     repository gives.
 
-    Only ``grid=None`` and ``halo_depth=1`` are ported; the 2-D grid and
-    deep halos raise ``NotImplementedError``.
+    ``halo_depth=k`` builds k-deep ghost zones: the ghost columns of a
+    shard are the closure of its boundary coupling to depth k (the depth
+    d + 1 ghosts are the off-shard columns of the depth-d ghost rows), all
+    in one sorted set, so the halo plan below widens without change; the
+    rows of the depth ``< k`` ghosts form the ghost-row block. The ring
+    criterion scales with the depth (``max_ring * k`` shards of reach).
+    ``halo_depth=1`` gives the historical arrays bit for bit (and 0-sized
+    ghost arrays).
+
+    Only ``grid=None`` (or ``(1, N)``, the same layout) is ported; the 2-D
+    grid raises ``NotImplementedError``.
     """
     if fmt not in FORMATS + ("auto",):
         raise ValueError(f"unknown interior format {fmt!r}; want {FORMATS} or 'auto'")
     if grid is not None and int(grid[0]) > 1:
         _not_ported("the 2-D process grid", "queue 1, item 10")
-    if int(halo_depth) != 1:
-        _not_ported("deep halos (halo_depth > 1)", "queue 1, item 9")
+    halo_depth = int(halo_depth)
+    if halo_depth < 1:
+        raise ValueError(f"halo_depth must be >= 1, got {halo_depth}")
     a = a_csr.tocsr()
     n = a.shape[0]
     part = partition or balanced_partition(n, n_shards)
@@ -702,21 +766,24 @@ def partition_csr(
     own = (indices >= ent_lo) & (indices < ent_hi)
     del ent_lo, ent_hi
 
-    # --- external entries: shifts, halo plan, x_ext positions --------------
+    # --- external entries: ghost columns, shifts, halo plan, x_ext slots ---
     ext_e = np.flatnonzero(~own)
     e_row = ent_row[ext_e]
     e_shard = row_shard[e_row]
     e_col = indices[ext_e]
     # (shard, column) pairs, sorted by shard then column: each shard's
-    # sorted ghost-column set, as the reference's per-shard np.unique
+    # sorted ghost-column set, as the reference's per-shard np.unique,
+    # widened to the depth-k closure and merged into one sorted set
     pair = e_shard * n + e_col
-    upair, inv = np.unique(pair, return_inverse=True)
+    upair, u_depth = _ghost_closure(np.unique(pair), indptr, indices, starts, n,
+                                    halo_depth)
     u_shard = upair // n
     u_col = upair % n
     u_owner = part.owner_of(u_col)
     d = u_owner - u_shard
     seen = np.unique(d)
-    mode = "ring" if all(abs(int(v)) <= max_ring for v in seen) else "allgather"
+    reach = max_ring * halo_depth
+    mode = "ring" if all(abs(int(v)) <= reach for v in seen) else "allgather"
     if force_allgather:
         mode = "allgather"
     shifts = tuple(sorted((int(v) for v in seen), key=lambda v: (abs(v), v)))
@@ -740,12 +807,14 @@ def partition_csr(
         W = sum(widths)
         send_sel = np.zeros((S, max(W, 1)), np.int32)
         send_sel[u_owner, off[u_k] + rank] = (u_col - starts[u_owner]).astype(np.int32)
-        e_lidx = u_pos[inv]
+        e_lidx = u_pos[np.searchsorted(upair, pair)]
     else:
         plan = HaloPlan("allgather", (), (), R, S)
         send_sel = np.zeros((S, 1), np.int32)
         e_owner = part.owner_of(e_col)
         e_lidx = e_owner * R + (e_col - starts[e_owner])
+        u_pos = None
+    del pair
 
     # --- interior block ----------------------------------------------------
     own_e = np.flatnonzero(own)
@@ -782,6 +851,12 @@ def partition_csr(
     bnd_rows = np.zeros((S, B), np.int32)
     bnd_rows[b_shard, b_j] = (b_rows - starts[b_shard]).astype(np.int32)
 
+    # --- ghost-row block: the rows of the depth < k ghosts (none at depth 1,
+    # none in allgather mode) ------------------------------------------------
+    deep = np.flatnonzero(u_depth < halo_depth) if mode == "ring" else u_depth[:0]
+    ghost = _ghost_rows(deep, upair, u_pos, indptr, indices, vals, starts, n, S,
+                        plan.ext_len, dtype)
+
     return DistMat(
         interior=interior,
         data_ext=_to_torch(data_ext, device),
@@ -792,7 +867,85 @@ def partition_csr(
         n_global=n,
         row_starts=part.row_starts,
         n_bnd=n_bnd,
+        ghost_data=_to_torch(ghost[0], device),
+        ghost_col=_to_torch(ghost[1], device),
+        ghost_pos=_to_torch(ghost[2], device),
+        halo_depth=halo_depth if mode != "allgather" else 1,
     )
+
+
+def _csr_entries(indptr: np.ndarray, rows: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """``(entry ids, entry count of each row)`` of CSR ``rows``, entries
+    row by row in CSR order."""
+    lens = indptr[rows + 1] - indptr[rows]
+    tot = int(lens.sum())
+    if not tot:
+        return np.zeros(0, np.int64), lens
+    first = np.cumsum(lens) - lens
+    return np.repeat(indptr[rows] - first, lens) + np.arange(tot), lens
+
+
+def _ghost_closure(pairs: np.ndarray, indptr, indices, starts, n: int, depth: int):
+    """The depth-``depth`` ghost set of every shard at once.
+
+    ``pairs`` are the sorted ``shard * n + column`` keys of the depth-1
+    ghosts. The depth-(d + 1) ghosts of a shard are the off-shard columns
+    of the rows of its depth-d ghosts not seen yet (the reference's frontier
+    loop, for all shards in one pass). Returns the merged sorted keys and
+    the depth of each."""
+    keys, depths = [pairs], [np.ones(len(pairs), np.int64)]
+    frontier, seen = pairs, pairs
+    for dd in range(2, depth + 1):
+        if not len(frontier):
+            break
+        f_shard = frontier // n
+        ent, lens = _csr_entries(indptr, frontier % n)
+        sh = np.repeat(f_shard, lens)
+        cols = indices[ent]
+        off = (cols < starts[sh]) | (cols >= starts[sh + 1])
+        ref = np.unique(sh[off] * n + cols[off])
+        frontier = np.setdiff1d(ref, seen, assume_unique=True)
+        seen = np.union1d(seen, frontier)
+        keys.append(frontier)
+        depths.append(np.full(len(frontier), dd, np.int64))
+    merged = np.concatenate(keys)
+    order = np.argsort(merged, kind="stable")
+    return merged[order], np.concatenate(depths)[order]
+
+
+def _ghost_rows(deep, upair, u_pos, indptr, indices, vals, starts, n: int, S: int,
+                ext_len: int, dtype):
+    """The ghost-row block ``(ghost_data, ghost_col, ghost_pos)``: one
+    padded-ELL row per ghost ``upair[deep]`` (``shard * n + global row``,
+    sorted) with its columns in the shard's ``x_ext`` space — own columns
+    at ``column - row_start``, off-shard ones at their halo slot ``u_pos``
+    — and its own halo slot. Padding rows keep ``ghost_pos == ext_len``."""
+    g_keys = upair[deep]
+    g_shard = g_keys // n
+    gj = _rank_in_groups(g_shard)
+    G = int(np.bincount(g_shard, minlength=S).max()) if len(g_keys) else 0
+    ent, lens = _csr_entries(indptr, g_keys % n)
+    kg = max(int(lens.max()) if len(lens) else 0, 1)
+    ghost_data = np.zeros((S, G, kg), dtype)
+    ghost_col = np.zeros((S, G, kg), np.int32)
+    ghost_pos = np.full((S, G), ext_len, np.int32)
+    if len(g_keys):
+        es = np.repeat(g_shard, lens)
+        ej = np.repeat(gj, lens)
+        slot = np.arange(len(ent), dtype=np.int64) - np.repeat(np.cumsum(lens) - lens, lens)
+        c = indices[ent]
+        lo = starts[es]
+        own = (c >= lo) & (c < starts[es + 1])
+        # the closure holds every off-shard column of a depth < k ghost row
+        lidx = c - lo
+        key = es[~own] * n + c[~own]
+        at = np.searchsorted(upair, key)
+        assert np.array_equal(upair[np.minimum(at, len(upair) - 1)], key)
+        lidx[~own] = u_pos[at]
+        ghost_data[es, ej, slot] = vals[ent]
+        ghost_col[es, ej, slot] = lidx.astype(np.int32)
+        ghost_pos[g_shard, gj] = u_pos[deep].astype(np.int32)
+    return ghost_data, ghost_col, ghost_pos
 
 
 def distmat_from_numpy(
@@ -819,6 +972,10 @@ def distmat_from_numpy(
     bcol=None,
     n_brows: int = 0,
     bpr: int = 0,
+    ghost_data=None,
+    ghost_col=None,
+    ghost_pos=None,
+    halo_depth: int = 1,
     device="cpu",
 ) -> DistMat:
     """A :class:`DistMat` from another builder's arrays (numpy) and plan
@@ -826,8 +983,10 @@ def distmat_from_numpy(
     carried across as they are. The interior is a :class:`BCSRBlock` when
     ``blocks``/``bcol`` are given (``n_brows``, ``bpr``; the tile shape is
     that of ``blocks``), a :class:`HYBBlock` when the ``tail_*`` arrays are
-    given beside ``data``/``col`` (``n_tail``), else an :class:`ELLBlock`."""
-    t = lambda a: _to_torch(np.array(a), device)  # a copy: inputs may be read-only
+    given beside ``data``/``col`` (``n_tail``), else an :class:`ELLBlock`.
+    A deep-halo partition carries its ghost-row block (``ghost_data``,
+    ``ghost_col``, ``ghost_pos``) and ``halo_depth``."""
+    t = lambda a: None if a is None else _to_torch(np.array(a), device)  # a copy
     if blocks is not None:
         _, _, br, bc = np.shape(blocks)
         interior = BCSRBlock(blocks=t(blocks), bcol=t(bcol), n_brows=int(n_brows),
@@ -849,6 +1008,10 @@ def distmat_from_numpy(
         n_global=int(n_global),
         row_starts=tuple(int(r) for r in row_starts),
         n_bnd=tuple(int(b) for b in n_bnd),
+        ghost_data=t(ghost_data),
+        ghost_col=t(ghost_col),
+        ghost_pos=t(ghost_pos),
+        halo_depth=int(halo_depth),
     )
 
 

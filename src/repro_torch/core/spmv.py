@@ -29,6 +29,11 @@ Pallas kernel); the HYB tail is added by a fixed tree of sums
 the dispatch op ``bcsr_spmv`` / ``bcsr_spmm``, on the card the hand-written
 kernels. Counts are recorded per shard, with the per-shard sizes the JAX
 package's local blocks have.
+
+:func:`matrix_powers` is the communication-avoiding SpMV of s-step CG: on a
+``halo_depth >= s`` partition ONE widened exchange feeds s chained
+products, the replicated ghost rows (:func:`ghost_matvec`) recomputing the
+halo between them.
 """
 
 from __future__ import annotations
@@ -343,3 +348,94 @@ def make_spmv(mat: DistMat, *, overlap: bool = True):
         return spmv_shard(mat, x, overlap=overlap)
 
     return spmv
+
+
+# ---------------------------------------------------------------------------
+# Matrix-powers SpMV (communication-avoiding s-step bases)
+# ---------------------------------------------------------------------------
+
+
+def ghost_matvec(mat: DistMat, x_ext: torch.Tensor) -> torch.Tensor:
+    """Redundant ghost-row matvec: ``yg[s, j] = sum_k ghost_data[s,j,k] *
+    x_ext[s, ghost_col[s,j,k]]`` -> (S, G).
+
+    The deep-halo replicated rows recompute the halo region between chained
+    applications instead of re-exchanging it. Recorded under its own op
+    name, with the JAX package's counts, so the ledger prices the redundant
+    work apart from the interior matvec. A gather and a reduction in
+    PyTorch, as it is a ``jnp`` einsum in the JAX package (no Pallas
+    kernel).
+    """
+    data = mat.ghost_data
+    S, G, kg = data.shape
+    b = data.element_size()
+    mat_bytes = float(G * kg * (b + mat.ghost_col.element_size()))
+    trace.record_op(
+        "ghost_matvec",
+        OpCounts(
+            flops=2.0 * G * kg,
+            hbm_bytes=mat_bytes + float(min(x_ext.shape[1], G * kg) * b + G * (b + 4)),
+            hbm_matrix_bytes=mat_bytes,
+        ),
+    )
+    return (data * _gather(x_ext, mat.flat_ghost_col, data.shape)).sum(-1)
+
+
+def matrix_powers(mat: DistMat, p: torch.Tensor, s: int, *,
+                  overlap: bool | None = None) -> list:
+    """``[A p, A² p, ..., Aˢ p]`` for the stacked ``(S, R)`` vector ``p``,
+    from ONE exchange: a list of s ``(S, R)`` stacks.
+
+    A ``halo_depth >= s`` partition's single widened halo exchange delivers
+    the depth-s closure of the boundary coupling; then each application
+    multiplies the interior and boundary blocks for the own rows AND
+    recomputes every replicated ghost row (depth < s), whose values replace
+    the halo for the next application (padding rows dropped). Application j
+    is exact on the own rows and on the ghosts of depth ``<= s - j``; the
+    deeper halo slots are zero-filled and never read where it matters.
+
+    ``overlap=True`` (with a real exchange) attributes the whole block to
+    one ``"overlap"`` region; otherwise the exchange goes to ``"halo"`` and
+    the products to the caller's region, as in the JAX package.
+    """
+    if mat.plan.mode != "ring":
+        raise ValueError(
+            "matrix_powers needs a ring halo plan (allgather layouts "
+            "re-gather the full vector every application)"
+        )
+    has_halo = len(mat.plan.shifts) > 0
+    if has_halo and mat.halo_depth < s:
+        raise ValueError(
+            f"matrix_powers with s={s} needs a halo_depth >= {s} partition "
+            f"(got halo_depth={mat.halo_depth}); rebuild with "
+            f"partition_csr(..., halo_depth=s)"
+        )
+    if overlap is None:
+        overlap = _OVERLAP_DEFAULT
+    S, R = p.shape
+    ghosts = mat.ghost_data is not None and mat.ghost_data.numel() > 0
+
+    def _chain(x_ext: torch.Tensor) -> list:
+        halo_len = x_ext.shape[1] - R
+        outs = []
+        x_own = p
+        for j in range(s):
+            y = interior_matvec(mat.interior, x_own)
+            yb = boundary_matvec(mat, x_ext, src_elems=halo_len or None)
+            x_own = _scatter_boundary(mat, y, yb)
+            outs.append(x_own)
+            if j + 1 == s:
+                break  # the last application's ghosts are never read
+            halo_next = x_ext.new_zeros((S, halo_len))
+            if ghosts:
+                yg = ghost_matvec(mat, x_ext)
+                src, dst = mat.ghost_scatter
+                halo_next.view(-1).index_copy_(0, dst, yg.reshape(-1).index_select(0, src))
+            x_ext = torch.cat([x_own, halo_next], dim=1)
+        return outs
+
+    if overlap and has_halo:
+        with trace.region(trace.OVERLAP):
+            halo = _halo_exchange(p, mat)
+            return _chain(torch.cat([p, halo], dim=1))
+    return _chain(gather_ext(mat, p))

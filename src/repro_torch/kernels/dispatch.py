@@ -262,6 +262,65 @@ class OpSet:
                 trace.block_update_counts(n, r, x1.element_size(), terms=2))
         return fr.block_update2(a1, x1, y1, a2, x2, y2)
 
+    # -- s-step block ops (1 HBM sweep each) --------------------------------
+
+    def sstep_gram(self, pb, wb, wp, r):
+        """Local s-step reduction ``[PᵀW | WpᵀP | Pᵀr | rᵀr]`` as one flat
+        ``(S, 2s²+s+1)`` per-shard partial, ONE pass over {P, W, Wp, r}.
+
+        Everything the s-step block solve needs from the data — both Gram
+        blocks, the moment vector and the residual norm — for ONE
+        all-reduce (``fused_blocks``); the basis column A-norms of the
+        stability scaling are ``diag(PᵀW)``, so no payload is added.
+        """
+        _require_block("sstep_gram", pb, wb, wp)
+        _require_vec("sstep_gram", r)
+        self._check("sstep_gram", pb)
+        n, s = pb.shape[-2:]
+        ib = pb.element_size()
+        _record(
+            "sstep_gram",
+            OpCounts(
+                flops=float(4 * n * s * s + 2 * n * s + 2 * n),
+                hbm_bytes=float((3 * s + 1) * n + 2 * s * s + s + 1) * ib,
+            ),
+        )
+        return fr.sstep_gram(pb, wb, wp, r)
+
+    def sstep_basis(self, b, dinv, qp, pb, wp, wb):
+        """``(Pb·diag(dinv) − Qp @ b, Wb·diag(dinv) − Wp @ b)`` — the
+        normalized A-conjugated search and image blocks, ONE pass over all
+        four ``(S, R, s)`` blocks (read 4, write 2)."""
+        _require_block("sstep_basis", qp, pb, wp, wb)
+        self._check("sstep_basis", pb)
+        n, s = pb.shape[-2:]
+        ib = pb.element_size()
+        _record(
+            "sstep_basis",
+            OpCounts(
+                flops=float(4 * n * s * s + 4 * n * s),
+                hbm_bytes=6.0 * n * s * ib,
+            ),
+        )
+        return fr.sstep_basis(b, dinv, qp, pb, wp, wb)
+
+    def sstep_update(self, a, q, wq, x, r):
+        """``(x + Q @ a, r − WQ @ a)`` for an ``(s,)`` coefficient vector —
+        the s-step x/r update, ONE pass over both blocks and both vectors."""
+        _require_block("sstep_update", q, wq)
+        _require_vec("sstep_update", x, r)
+        self._check("sstep_update", q)
+        n, s = q.shape[-2:]
+        ib = q.element_size()
+        _record(
+            "sstep_update",
+            OpCounts(
+                flops=float(4 * n * s + 2 * n),
+                hbm_bytes=float(2 * n * s + 4 * n) * ib,
+            ),
+        )
+        return fr.sstep_update(a, q, wq, x, r)
+
     # -- SpMV -----------------------------------------------------------------
 
     def bcsr_spmv(self, blocks, bcol, x, *, n_brows, bpr, n_out=None):

@@ -1,9 +1,9 @@
 """Launch wrappers for the hand-written Hopper kernels of the CG hot paths.
 
 The kernels live in ``csrc/fused_reductions.cu`` (the vector kernels of hs,
-fcg and pipecg) and ``csrc/block_reductions.cu`` (the block-HS kernels),
-CUDA C++ for ``sm_90a``, built by ``kernels/_build.py`` and called through
-ctypes. Each wrapper:
+fcg and pipecg), ``csrc/block_reductions.cu`` (the block-HS kernels) and
+``csrc/sstep_reductions.cu`` (the s-step kernels), CUDA C++ for ``sm_90a``,
+built by ``kernels/_build.py`` and called through ctypes. Each wrapper:
 
 * takes vectors in the stacked ``(S, R)`` layout (S shards on one device)
   or as one ``(n,)`` vector — column blocks as ``(S, R, r)`` or one
@@ -18,7 +18,7 @@ ctypes. Each wrapper:
   where the kernel is launched and nowhere else; :func:`reset_launches`).
 
 Scalars (alpha, beta) may be 0-d or ``(S,)`` tensors, coefficient blocks
-are ``(r, r)``; on the card the kernels read them through a device pointer, so no scalar or block ever crosses to the host here. A
+are ``(r, r)`` (``(s, s)`` and ``(s,)`` for the s-step kernels); on the card the kernels read them through a device pointer, so no scalar or block ever crosses to the host here. A
 non-contiguous streamed operand on the card raises (no quiet copy); the
 small coefficients are made contiguous.
 
@@ -39,6 +39,8 @@ from repro_torch.kernels import _build, ref
 
 SOURCE = "src/repro_torch/kernels/csrc/fused_reductions.cu"
 BLOCK_SOURCE = "src/repro_torch/kernels/csrc/block_reductions.cu"
+SSTEP_SOURCE = "src/repro_torch/kernels/csrc/sstep_reductions.cu"
+MAX_S = 16  # the largest s-step block the s-step kernels take
 MAX_OPERANDS = 4
 MAX_PRODUCTS = 6
 
@@ -63,6 +65,14 @@ _BLOCK_SIGNATURES = {
     **{f"br_update2_{t}": (_P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _I, _P)
        for t in ("f32", "f64")},
 }
+_SSTEP_SIGNATURES = {
+    "ss_gram_nblk": (_L, _L, _I, _I),
+    **{f"ss_gram_{t}": (_P, _P, _P, _P, _L, _L, _I, _P, _P, _P) for t in ("f32", "f64")},
+    **{f"ss_basis_{t}": (_P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _I, _P)
+       for t in ("f32", "f64")},
+    **{f"ss_update_{t}": (_P, _P, _P, _P, _P, _P, _P, _L, _L, _I, _P)
+       for t in ("f32", "f64")},
+}
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
@@ -72,6 +82,10 @@ def _lib():
 
 def _block_lib():
     return _build.library("block_reductions", _BLOCK_SIGNATURES)
+
+
+def _sstep_lib():
+    return _build.library("sstep_reductions", _SSTEP_SIGNATURES)
 
 
 def _as_stack(name: str, ts) -> tuple[int, int]:
@@ -118,16 +132,34 @@ def _as_block_stack(name: str, ts) -> tuple[int, int, int]:
     return int(S), int(R), int(r)
 
 
-def _block_arg(name: str, m, like: torch.Tensor, r: int) -> torch.Tensor:
-    """The ``(r, r)`` coefficient block, shared by every shard, as a
-    contiguous device tensor for the kernel."""
-    if not isinstance(m, torch.Tensor):
-        m = torch.tensor(m, dtype=like.dtype, device=like.device)
-    if m.device != like.device:
-        raise ValueError(f"{name}: coefficients on {m.device}, blocks on {like.device}")
-    if tuple(m.shape) != (r, r):
-        raise ValueError(f"{name}: coefficients must be ({r}, {r}), got {tuple(m.shape)}")
-    return m.to(like.dtype).contiguous()
+def _coef_arg(name: str, c, like: torch.Tensor, shape: tuple) -> torch.Tensor:
+    """A coefficient block or vector of ``shape`` (``(r, r)``, ``(s, s)``,
+    ``(s,)``), shared by every shard, as a contiguous device tensor for the
+    kernel."""
+    if not isinstance(c, torch.Tensor):
+        c = torch.tensor(c, dtype=like.dtype, device=like.device)
+    if c.device != like.device:
+        raise ValueError(f"{name}: coefficients on {c.device}, blocks on {like.device}")
+    if tuple(c.shape) != shape:
+        raise ValueError(f"{name}: coefficients must be {shape}, got {tuple(c.shape)}")
+    return c.to(like.dtype).contiguous()
+
+
+def _sstep_stack(name: str, blocks, vecs=()) -> tuple[int, int, int]:
+    """Validate s-step operands — ``(S, R, s)`` blocks (or ``(n, s)``) and
+    ``(S, R)`` vectors (or ``(n,)``) of the same rows; return ``(S, R, s)``.
+    On the card, s is at most :data:`MAX_S`."""
+    S, R, s = _as_block_stack(name, blocks)
+    if vecs:
+        VS, VR = _as_stack(name, vecs)
+        if (VS, VR) != (S, R) or vecs[0].dim() != blocks[0].dim() - 1:
+            raise ValueError(f"{name}: vectors {tuple(vecs[0].shape)} do not match the "
+                             f"rows of the blocks {tuple(blocks[0].shape)}")
+        if vecs[0].dtype != blocks[0].dtype or vecs[0].device != blocks[0].device:
+            raise ValueError(f"{name}: operands differ in dtype or device")
+    if blocks[0].device.type == "cuda" and s > MAX_S:
+        raise ValueError(f"{name}: the kernel takes s <= {MAX_S}, got s = {s}")
+    return S, R, s
 
 
 def _scalar_arg(name: str, a, like: torch.Tensor, S: int):
@@ -335,7 +367,7 @@ def block_update(m, x: torch.Tensor, y: torch.Tensor, mask=None) -> torch.Tensor
     if x.device.type != "cuda":
         return ref.block_update_ref(m, x, y, mask)
     lib = _block_lib()
-    mv = _block_arg("block_update", m, x, r)
+    mv = _coef_arg("block_update", m, x, (r, r))
     kv = None
     if mask is not None:
         kv = torch.as_tensor(mask, device=x.device).to(x.dtype).contiguous()
@@ -357,8 +389,8 @@ def block_update2(a1, x1, y1, a2, x2, y2):
     if x1.device.type != "cuda":
         return ref.block_update2_ref(a1, x1, y1, a2, x2, y2)
     lib = _block_lib()
-    av1 = _block_arg("block_update2", a1, x1, r)
-    av2 = _block_arg("block_update2", a2, x1, r)
+    av1 = _coef_arg("block_update2", a1, x1, (r, r))
+    av2 = _coef_arg("block_update2", a2, x1, (r, r))
     o1 = torch.empty_like(x1)
     o2 = torch.empty_like(x1)
     fn = getattr(lib, f"br_update2_{_SUFFIX[x1.dtype]}")
@@ -369,6 +401,67 @@ def block_update2(a1, x1, y1, a2, x2, y2):
     return o1, o2
 
 
+def sstep_gram(pb, wb, wp, r) -> torch.Tensor:
+    """Local s-step reduction ``[PᵀW | WpᵀP | Pᵀr | rᵀr]`` in ONE pass over
+    the ``(S, R, s)`` blocks P, W, Wp and the ``(S, R)`` residual.
+
+    Returns ``(S, 2s²+s+1)`` per-shard partials (``(2s²+s+1,)`` for one
+    ``(n, s)`` block), summed in a fixed order: the same inputs give the
+    same bits on every launch."""
+    S, R, s = _sstep_stack("sstep_gram", (pb, wb, wp), (r,))
+    if pb.device.type != "cuda":
+        return ref.sstep_gram_ref(pb, wb, wp, r)
+    lib = _sstep_lib()
+    K = 2 * s * s + s + 1
+    nblk = lib.ss_gram_nblk(S, R, s, pb.element_size())
+    partials = torch.empty(S * nblk * K, dtype=pb.dtype, device=pb.device)
+    out = torch.empty((S, K), dtype=pb.dtype, device=pb.device)
+    fn = getattr(lib, f"ss_gram_{_SUFFIX[pb.dtype]}")
+    _build.check(fn(pb.data_ptr(), wb.data_ptr(), wp.data_ptr(), r.data_ptr(), S, R, s,
+                    partials.data_ptr(), out.data_ptr(), _stream(pb)), "sstep_gram")
+    sstep_gram.launches += 1
+    return out if pb.dim() == 3 else out[0]
+
+
+def sstep_basis(b, dinv, qp, pb, wp, wb):
+    """``(Pb·diag(dinv) − Qp @ b, Wb·diag(dinv) − Wp @ b)`` in ONE pass over
+    the four ``(S, R, s)`` blocks: the s-step A-conjugation with the basis
+    column normalization folded in. ``b`` is ``(s, s)`` and ``dinv``
+    ``(s,)``, shared by every shard."""
+    S, R, s = _sstep_stack("sstep_basis", (qp, pb, wp, wb))
+    if pb.device.type != "cuda":
+        return ref.sstep_basis_ref(b, dinv, qp, pb, wp, wb)
+    lib = _sstep_lib()
+    bv = _coef_arg("sstep_basis", b, pb, (s, s))
+    dv = _coef_arg("sstep_basis", dinv, pb, (s,))
+    o1 = torch.empty_like(pb)
+    o2 = torch.empty_like(pb)
+    fn = getattr(lib, f"ss_basis_{_SUFFIX[pb.dtype]}")
+    _build.check(fn(bv.data_ptr(), dv.data_ptr(), qp.data_ptr(), pb.data_ptr(),
+                    wp.data_ptr(), wb.data_ptr(), o1.data_ptr(), o2.data_ptr(), S, R, s,
+                    _stream(pb)), "sstep_basis")
+    sstep_basis.launches += 1
+    return o1, o2
+
+
+def sstep_update(a, q, wq, x, r):
+    """``(x + Q @ a, r − WQ @ a)`` in ONE pass over the ``(S, R, s)`` blocks
+    and the ``(S, R)`` vectors; ``a`` is the ``(s,)`` step coefficients,
+    shared by every shard."""
+    S, R, s = _sstep_stack("sstep_update", (q, wq), (x, r))
+    if q.device.type != "cuda":
+        return ref.sstep_update_ref(a, q, wq, x, r)
+    lib = _sstep_lib()
+    av = _coef_arg("sstep_update", a, q, (s,))
+    ox = torch.empty_like(x)
+    orr = torch.empty_like(x)
+    fn = getattr(lib, f"ss_update_{_SUFFIX[q.dtype]}")
+    _build.check(fn(av.data_ptr(), q.data_ptr(), wq.data_ptr(), x.data_ptr(), r.data_ptr(),
+                    ox.data_ptr(), orr.data_ptr(), S, R, s, _stream(q)), "sstep_update")
+    sstep_update.launches += 1
+    return ox, orr
+
+
 fused_dots_n.launches = 0
 fused_axpy.launches = 0
 fused_axpy2.launches = 0
@@ -376,6 +469,9 @@ fused_axpy2_dots.launches = 0
 block_gram.launches = 0
 block_update.launches = 0
 block_update2.launches = 0
+sstep_gram.launches = 0
+sstep_basis.launches = 0
+sstep_update.launches = 0
 
 #: The kernels of this module: what each replaces and what bounds it.
 KERNELS = {
@@ -413,6 +509,21 @@ KERNELS = {
         wrapper=block_update2, plain=ref.block_update2_ref, source=BLOCK_SOURCE,
         replaces="src/repro/kernels/fused_reductions.py:361",
         bound_by="bytes",  # 4 blocks read, 2 written
+    ),
+    "sstep_gram": dict(
+        wrapper=sstep_gram, plain=ref.sstep_gram_ref, source=SSTEP_SOURCE,
+        replaces="src/repro/kernels/fused_reductions.py:414",
+        bound_by="bytes",  # 3 (R, s) blocks + r read once; about 2s/3 FMAs/element
+    ),
+    "sstep_basis": dict(
+        wrapper=sstep_basis, plain=ref.sstep_basis_ref, source=SSTEP_SOURCE,
+        replaces="src/repro/kernels/fused_reductions.py:469",
+        bound_by="bytes",  # 4 (R, s) blocks read, 2 written; s FMAs per output
+    ),
+    "sstep_update": dict(
+        wrapper=sstep_update, plain=ref.sstep_update_ref, source=SSTEP_SOURCE,
+        replaces="src/repro/kernels/fused_reductions.py:503",
+        bound_by="bytes",  # 2 (R, s) blocks + 2 vectors read, 2 vectors written
     ),
 }
 

@@ -3,8 +3,8 @@
 Counterpart of ``repro.kernels.ref`` for the kernels ported so far. Each
 function computes what its kernel computes, on the stacked ``(S, R)``
 layout (or a single ``(n,)`` vector) — ``(S, R, r)`` column blocks (or one
-``(n, r)`` block) for the block kernels — and returns the same per-shard
-partials: the kernel wrappers in ``kernels/fused_reductions.py`` and
+``(n, r)`` block) for the block and s-step kernels — and returns the same
+per-shard partials: the kernel wrappers in ``kernels/fused_reductions.py`` and
 ``kernels/spmv_bcsr.py`` use these for CPU tensors, and the tests and
 ``chip_smoke.py`` hold the kernels against them. Sums accumulate in the
 input dtype, as the kernels do.
@@ -134,3 +134,31 @@ def bcsr_spmm_ref(blocks, bcol, x, n_brows: int, bpr: int, n_out=None) -> torch.
     contrib = blocks @ xb  # (S, n_tiles, br, r)
     y = contrib.view(S, n_brows, bpr, br, r).sum(2).reshape(S, n_brows * br, r)
     return y[:, : _bcsr_n_out(x.shape[1], n_brows, br, n_out)].contiguous()
+
+
+# ---------------------------------------------------------------------------
+# s-step CG kernels: stacked (S, R, s) basis blocks and (S, R) vectors
+# ---------------------------------------------------------------------------
+
+
+def sstep_gram_ref(pb, wb, wp, r) -> torch.Tensor:
+    """Flat local s-step reduction ``[PᵀW | WpᵀP | Pᵀr | rᵀr]`` of length
+    2s² + s + 1 per shard: ``(S, 2s²+s+1)`` for stacked ``(S, R, s)``
+    blocks and ``(S, R)`` residuals, ``(2s²+s+1,)`` for one ``(n, s)``
+    block. The products sum :data:`GRAM_ROWS`-row chunks, as
+    :func:`block_gram_ref` does."""
+    rc = r.unsqueeze(-1)
+    parts = [_gram(pb, wb), _gram(wp, pb), _gram(pb, rc), _gram(rc, rc)]
+    return torch.cat([p.flatten(-2) for p in parts], dim=-1)
+
+
+def sstep_basis_ref(b, dinv, qp, pb, wp, wb):
+    """``(Pb·diag(dinv) − Qp @ b, Wb·diag(dinv) − Wp @ b)`` — the s-step
+    A-conjugation with the column normalization folded in; ``b`` is
+    ``(s, s)``, ``dinv`` ``(s,)``, shared by every shard."""
+    return pb * dinv - qp @ b, wb * dinv - wp @ b
+
+
+def sstep_update_ref(a, q, wq, x, r):
+    """``(x + Q @ a, r − WQ @ a)`` for an ``(s,)`` coefficient vector."""
+    return x + q @ a, r - wq @ a

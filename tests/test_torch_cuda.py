@@ -222,3 +222,99 @@ def test_cuda_bcsr_raises_above_the_block_cap(cuda_device):
     with pytest.raises(ValueError, match="tiles up to 16x16"):
         sb.bcsr_spmm(blocks, bcol, x[..., None].contiguous(), n_brows=NB, bpr=1)
     assert sb.bcsr_spmv.launches == n0
+
+
+SSTEP_TOL = {torch.float64: 1e-13, torch.float32: 1e-5}
+SSTEP_S = [1, 2, 3, 4, 5, 8, 16]  # register Gram up to 4, shared-memory Gram beyond
+
+
+def _card_sstep(dev, s, dtype, S=4, R=100_003, seed=0):
+    """Seeded (S, R, s) blocks and (S, R) vectors on the card, R ragged."""
+    g = torch.Generator(device=dev).manual_seed(seed + 17 * s)
+    blocks = [torch.randn(S, R, s, dtype=dtype, device=dev, generator=g) for _ in range(4)]
+    vecs = [torch.randn(S, R, dtype=dtype, device=dev, generator=g) for _ in range(2)]
+    return blocks, vecs, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("s", SSTEP_S)
+def test_cuda_sstep_gram_matches_plain(cuda_device, s, dtype):
+    (P, W, Wp, _), (r, _), _ = _card_sstep(cuda_device, s, dtype)
+    n0 = fr.sstep_gram.launches
+    got = fr.sstep_gram(P, W, Wp, r)
+    torch.cuda.synchronize()
+    assert fr.sstep_gram.launches == n0 + 1
+    assert got.shape == (4, 2 * s * s + s + 1)
+    p = ref.sstep_gram_ref(P, W, Wp, r)
+    scale = ref.sstep_gram_ref(P.abs(), W.abs(), Wp.abs(), r.abs())
+    assert _block_err(got, p, scale) <= SSTEP_TOL[dtype]
+    # deterministic two-stage sums: the same bits on every launch
+    assert torch.equal(got, fr.sstep_gram(P, W, Wp, r))
+    # one (n, s) block gives its (2s^2+s+1,) vector
+    one = fr.sstep_gram(P[1], W[1], Wp[1], r[1])
+    assert one.shape == (2 * s * s + s + 1,)
+    assert _block_err(one, p[1], scale[1]) <= SSTEP_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("s", SSTEP_S)
+def test_cuda_sstep_basis_matches_plain(cuda_device, s, dtype):
+    (Qp, Pb, Wp, Wb), _, g = _card_sstep(cuda_device, s, dtype, seed=1)
+    B = torch.randn(s, s, dtype=dtype, device=cuda_device, generator=g)
+    dinv = torch.rand(s, dtype=dtype, device=cuda_device, generator=g) + 0.1
+    n0 = fr.sstep_basis.launches
+    o1, o2 = fr.sstep_basis(B, dinv, Qp, Pb, Wp, Wb)
+    torch.cuda.synchronize()
+    assert fr.sstep_basis.launches == n0 + 1
+    q1, q2 = ref.sstep_basis_ref(B, dinv, Qp, Pb, Wp, Wb)
+    assert _block_err(o1, q1, Pb.abs() * dinv + Qp.abs() @ B.abs()) <= SSTEP_TOL[dtype]
+    assert _block_err(o2, q2, Wb.abs() * dinv + Wp.abs() @ B.abs()) <= SSTEP_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("s", SSTEP_S)
+def test_cuda_sstep_update_matches_plain(cuda_device, s, dtype):
+    (Q, WQ, _, _), (x, r), g = _card_sstep(cuda_device, s, dtype, seed=2)
+    a = torch.randn(s, dtype=dtype, device=cuda_device, generator=g)
+    n0 = fr.sstep_update.launches
+    ox, orr = fr.sstep_update(a, Q, WQ, x, r)
+    torch.cuda.synchronize()
+    assert fr.sstep_update.launches == n0 + 1
+    px, pr = ref.sstep_update_ref(a, Q, WQ, x, r)
+    assert _block_err(ox, px, x.abs() + Q.abs() @ a.abs()) <= SSTEP_TOL[dtype]
+    assert _block_err(orr, pr, r.abs() + WQ.abs() @ a.abs()) <= SSTEP_TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_cuda_sstep_never_takes_the_plain_version(cuda_device, monkeypatch):
+    """CUDA tensors launch the s-step kernels through the dispatch ops even
+    with the plain versions made to fail; s past the cap raises on the card
+    and launches nothing."""
+    from repro_torch.kernels import dispatch as kd
+
+    (P, W, Wp, Wb), (x, r), _ = _card_sstep(cuda_device, 3, torch.float64, R=1001)
+
+    def boom(*a, **k):
+        raise AssertionError("a CUDA tensor took the plain version")
+
+    for name in ("sstep_gram_ref", "sstep_basis_ref", "sstep_update_ref"):
+        monkeypatch.setattr(ref, name, boom)
+    ops = kd.ops_for(None)
+    n0 = [k.launches for k in (fr.sstep_gram, fr.sstep_basis, fr.sstep_update)]
+    ops.sstep_gram(P, W, Wp, r)
+    eye = torch.eye(3, dtype=P.dtype, device=cuda_device)
+    Q, WQ = ops.sstep_basis(eye, torch.ones(3, dtype=P.dtype, device=cuda_device),
+                            P, W, Wp, Wb)
+    ops.sstep_update(torch.ones(3, dtype=P.dtype, device=cuda_device), Q, WQ, x, r)
+    torch.cuda.synchronize()
+    assert [k.launches for k in (fr.sstep_gram, fr.sstep_basis, fr.sstep_update)] == \
+        [v + 1 for v in n0]
+    with pytest.raises(ValueError, match="backend 'torch'"):
+        kd.ops_for("torch").sstep_gram(P, W, Wp, r)
+    big = torch.zeros(2, 5, fr.MAX_S + 1, dtype=torch.float64, device=cuda_device)
+    with pytest.raises(ValueError, match=f"s <= {fr.MAX_S}"):
+        fr.sstep_gram(big, big, big, big[..., 0].contiguous())
+    assert fr.sstep_gram.launches == n0[0] + 1

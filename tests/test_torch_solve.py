@@ -312,11 +312,15 @@ def test_config_surface_matches_reference():
     args = parse_args(cfg.to_argv() + ["--side", "9"])
     assert api.SolverConfig.from_args(args) == cfg
     assert api.ProblemSpec.from_args(args) == api.ProblemSpec(side=9)
-    for kw, item in ((dict(variant="sstep"), "item 9"),
-                     (dict(grid="2x2"), "item 10"), (dict(amg=True), "item 12")):
+    for kw, item in ((dict(grid="2x2"), "item 10"), (dict(amg=True), "item 12")):
         with pytest.raises(NotImplementedError, match=item):
             api.solve(api.ProblemSpec(side=6), api.SolverConfig(**kw), device="cpu",
                       verbose=False)
+    # s-step CG is ported: it solves on a halo_depth = s partition
+    rep = api.solve(api.ProblemSpec(side=6, shards=2), api.SolverConfig(variant="sstep", s=3),
+                    device="cpu", verbose=False)
+    assert (rep.ledger["halo_depth"], rep.ledger["s"]) == (3, 3)
+    assert rep.summary["BCMGX-analog"]["iters"] % 3 == 0
     # SuiteSparse problems are ported: the spec loads the reference's matrix
     kw = dict(problem="af_shell8", scale=0.002)
     (a, name), (ja, jname) = api.ProblemSpec(**kw).load(), japi.ProblemSpec(**kw).load()
