@@ -54,12 +54,35 @@ CUDA card with sm_90a). It
    right-hand side through the session's solver handle at s = 4 — relres,
    scipy residual, iterations beside hs's, and each s-step kernel launched
    once per s-iteration block;
-9. profiles 20 iterations of hs, fcg, pipecg, block-HS and s-step (s = 2)
+9. the matrix-free stencil path (``core/stencil_solver.py``), float64 on
+   4 stacked slabs of 64 planes at side 256 unless noted:
+
+   * the four stencil kernels held against their plain versions in float64
+     and float32, 7pt, anisotropic 7pt (1, 2.5, 7) and 27pt, at the path's
+     shape (the global 256³ grid for ``stencil_spmv`` and the sweep) and at
+     ragged ones ((4, 5, 33, 45); nz = 1 for the slab kernel, nz = 2 for
+     the boundary kernel); the boundary planes must be bitwise the slab
+     kernel's, and ``stencil_spmv`` on the global grid bitwise the 4-slab
+     halo kernel with real halos; each kernel, its plain version and
+     ``conv3d`` (the SpMVs' library yardstick) timed;
+   * ``make_matvec`` against scipy's ``A @ x`` (poisson7 at side 256, and
+     poisson27 at side 64), overlap on and off, ones and a seeded x;
+   * ``make_stencil_solver_fn`` with hs, fcg, pipecg and s-step (s = 2) on
+     poisson7 (b = ones, tol 1e-8): relres, scipy residual, iterations
+     within 2 of the same variant's ELL count in this run (s-step within
+     s), ms per iteration beside ELL's, each stencil kernel's launches
+     against the formula; hs on poisson27 at side 256, its residual from
+     the plain ``stencil27_ref`` on the card;
+   * ten fused Jacobi sweeps (``ops.jacobi_stencil_sweep``) on the global
+     grid with the residual from ``ops.stencil_spmv``: monotone, each sweep
+     against the plain version;
+10. profiles 20 iterations of hs, fcg, pipecg, block-HS and s-step (s = 2)
    with ``torch.profiler`` — and hs on BCSR (poisson7, boneS10), block-HS
-   on BCSR (boneS10) and hs on HYB (G3_circuit): device time per kernel and
-   the device's busy share of the wall time;
-10. prints one JSON line describing every kernel (``launches`` summed over
-   the solve paths), then, last, ``{"ok": true, "device": {...}}``.
+   on BCSR (boneS10), hs on HYB (G3_circuit) and matrix-free hs (poisson7):
+   device time per kernel and the device's busy share of the wall time;
+11. prints one JSON line describing every kernel (``launches`` summed over
+   the solve paths and the Jacobi sweeps), then, last, ``{"ok": true,
+   "device": {...}}``.
 
 Any failed check raises, and the script exits non-zero without the last
 line. It needs the repository (``src/repro_torch``) next to it and a GPU:
@@ -90,6 +113,7 @@ R_RAGGED = R_MAIN - 3
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float64": 34e12, "float32": 67e12}  # outside the tensor cores
 DOT_TOL = {"float64": 1e-13, "float32": 1e-5}
+ANISO = (1.0, 2.5, 7.0)  # the anisotropic 7pt stencil of the stencil kernel phase
 
 
 def smi(fields: str) -> str:
@@ -107,9 +131,11 @@ def check(cond: bool, msg: str):
 
 def kernel_modules():
     from repro_torch.kernels import fused_reductions as fr
+    from repro_torch.kernels import jacobi_stencil as js
     from repro_torch.kernels import spmv_bcsr as sb
+    from repro_torch.kernels import spmv_stencil as st
 
-    return fr, sb
+    return fr, sb, st, js
 
 
 def all_kernels() -> dict:
@@ -252,10 +278,10 @@ def kernel_phase(dev):
     return rows
 
 
-def time_row(name, work, kern, plain, lib, abs_err, tname, tag=""):
-    """Time a kernel, its plain version and the library call; the bound is
-    the larger of its bytes over the memory rate and its flops over the
-    peak rate."""
+def time_row(name, work, kern, plain, lib, abs_err, tname, tag="", lib_calls=20):
+    """Time a kernel, its plain version and the library call (``lib_calls``
+    calls per timing round); the bound is the larger of its bytes over the
+    memory rate and its flops over the peak rate."""
     desc = all_kernels()[name]
     nbytes, flops = work
     bound = max(nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[tname]) * 1e3
@@ -264,7 +290,7 @@ def time_row(name, work, kern, plain, lib, abs_err, tname, tag=""):
         replaces=desc["replaces"], max_abs_err=abs_err,
         ms=time_ms(kern), plain_ms=time_ms(plain),
         bound_ms=bound, bound_by=desc["bound_by"],
-        library_ms=time_ms(lib) if lib is not None else None,
+        library_ms=time_ms(lib, calls=lib_calls) if lib is not None else None,
     )
     print(f"time {name:16s} {tag}kernel {row['ms']:.4f} ms  bound {bound:.4f} ms "
           f"({100 * bound / row['ms']:.0f}%)  plain {row['plain_ms']:.4f} ms  "
@@ -429,6 +455,179 @@ def sstep_kernel_phase(dev):
     return rows
 
 
+STENCILS = (("7pt", (1.0, 1.0, 1.0)), ("7pt", ANISO), ("27pt", (1.0, 1.0, 1.0)))
+
+
+def halo_planes(x3):
+    """The stacked halo exchange of ``(S, nz, ny, nx)`` slabs: ``prev[s] =
+    x3[s - 1, -1]``, ``next[s] = x3[s + 1, 0]``, zero planes at the ends."""
+    import torch.nn.functional as F
+
+    return (F.pad(x3[:-1, -1], (0, 0, 0, 0, 1, 0)),
+            F.pad(x3[1:, 0], (0, 0, 0, 0, 0, 1)))
+
+
+def abs_product(plain, args, stencil, aniso, x):
+    """``|A| |x|`` (with |halo| planes) from the plain product of the
+    absolute inputs: ``2 d |x| - A |x|``, d the matrix diagonal."""
+    d = 26.0 if stencil == "27pt" else 2.0 * sum(aniso)
+    return 2 * d * x.abs() - plain(*[a.abs() for a in args])
+
+
+def conv3d_library(stencil, aniso, x5, pad, like):
+    """The library yardstick of the stencil SpMV, never on the port's path:
+    ``torch.nn.functional.conv3d`` with the 3x3x3 stencil weights on the
+    ``(N, 1, nz, ny, nx)`` input ``x5()`` (of ``like``'s dtype and device).
+    Returns ``(call, note)``; ``call`` is None, and the note holds the
+    error, where the card's torch refuses."""
+    import torch
+    import torch.nn.functional as F
+
+    try:
+        w = torch.zeros((1, 1, 3, 3, 3), dtype=like.dtype, device=like.device)
+        if stencil == "27pt":
+            w.fill_(-1.0)
+            w[0, 0, 1, 1, 1] = 26.0
+        else:
+            ax, ay, az = aniso
+            w[0, 0, 1, 1, 1] = 2.0 * (ax + ay + az)
+            w[0, 0, 1, 1, 0] = w[0, 0, 1, 1, 2] = -ax
+            w[0, 0, 1, 0, 1] = w[0, 0, 1, 2, 1] = -ay
+            w[0, 0, 0, 1, 1] = w[0, 0, 2, 1, 1] = -az
+        call = lambda: F.conv3d(x5(), w, padding=pad)
+        call()
+        torch.cuda.synchronize()
+        return call, "torch.nn.functional.conv3d, 3x3x3 stencil weights"
+    except Exception as e:  # the yardstick only; the port never calls it
+        return None, f"none ({type(e).__name__}: {str(e).splitlines()[0][:160]})"
+
+
+def stencil_kernel_phase(dev):
+    """The four stencil kernels against their plain versions, in float64
+    and float32, for 7pt, anisotropic 7pt ``ANISO`` and 27pt: at the path's
+    shape (S = 4 slabs of side/4 planes, the global side³ grid for the
+    single-grid kernels) and at ragged ones ((S, 5, 33, 45); nz = 1 for
+    the slab kernel, nz = 2 for the boundary kernel). Elementwise
+    ``|k - p| <= 2 eps (|A| |x|)`` (the same operations in the same order:
+    expected bitwise; whether it is, is printed); the boundary planes must
+    equal the slab kernel's bitwise, and ``stencil_spmv`` on the global
+    grid the 4-slab halo kernel with real halos. Timings at the path's
+    shape, 7pt, float64 (27pt printed beside), with ``conv3d`` as the
+    library yardstick of the two SpMVs."""
+    import torch
+
+    from repro_torch.kernels import jacobi_stencil as js
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import spmv_stencil as st
+
+    rows = {}
+    g = torch.Generator(device=dev).manual_seed(6)
+    nzl = SIDE // SHARDS
+    shapes = (("path", (SHARDS, nzl, SIDE, SIDE)), ("ragged", (SHARDS, 5, 33, 45)),
+              ("nz=1", (SHARDS, 1, 33, 45)), ("nz=2", (SHARDS, 2, 33, 45)))
+    for dt in (torch.float64, torch.float32):
+        tname = str(dt).split(".")[1]
+        eps = torch.finfo(dt).eps
+        for label, shape in shapes:
+            S, nz, ny, nx = shape
+            x3 = torch.randn(shape, dtype=dt, device=dev, generator=g)
+            prev, nxt = (torch.randn((S, ny, nx), dtype=dt, device=dev, generator=g)
+                         for _ in range(2))
+            xg = x3.reshape(S * nz, ny, nx)  # the stacked slabs as one grid
+            b = torch.randn(xg.shape, dtype=dt, device=dev, generator=g)
+            dinv = torch.rand(xg.shape, dtype=dt, device=dev, generator=g) + 0.05
+            for stencil, aniso in STENCILS:
+                kw = dict(stencil=stencil, aniso=aniso)
+                tag = f"{stencil}{'' if aniso == (1.0, 1.0, 1.0) else ' aniso'}"
+                halo = lambda *a: ref.stencil_halo_ref(*a, **kw)
+                spmv = lambda a: ref.stencil_spmv_ref(a, **kw)
+                yh = st.stencil_spmv_halo(x3, prev, nxt, bz=st.pick_bz(nz), **kw)
+                ys = st.stencil_spmv(xg, bz=st.pick_bz(S * nz), **kw)
+                yj = js.jacobi_stencil_sweep(xg, b, dinv, omega=0.8, bz=st.pick_bz(S * nz), **kw)
+                ph = halo(x3, prev, nxt)
+                ps = spmv(xg)
+                pj = ref.jacobi_sweep_ref(xg, b, dinv, omega=0.8, **kw)
+                sh = abs_product(halo, (x3, prev, nxt), stencil, aniso, x3)
+                ss = abs_product(spmv, (xg,), stencil, aniso, xg)
+                sj = xg.abs() + 0.8 * dinv * (b.abs() + ss)
+                checks = [("stencil_spmv_halo", yh, ph, sh), ("stencil_spmv", ys, ps, ss),
+                          ("jacobi_stencil_sweep", yj, pj, sj)]
+                if nz >= 2:
+                    yb = st.stencil_spmv_boundary(x3, prev, nxt, **kw)
+                    out = torch.zeros_like(x3)
+                    st.stencil_spmv_boundary(x3, prev, nxt, out=out, **kw)
+                    pb = ref.stencil_boundary_ref(x3, prev, nxt, **kw)
+                    checks.append(("stencil_spmv_boundary", yb, pb,
+                                   sh[:, [0, nz - 1]].contiguous()))
+                    torch.cuda.synchronize()
+                    same = (torch.equal(yb[:, 0], yh[:, 0]) and torch.equal(yb[:, 1], yh[:, -1])
+                            and torch.equal(out[:, [0, nz - 1]], yh[:, [0, nz - 1]])
+                            and (nz == 2 or not bool(out[:, 1:-1].any())))
+                    print(f"bitwise stencil_spmv_boundary {label:6s} {tname} {tag}: planes 0 "
+                          f"and {nz - 1} (and out=) equal to stencil_spmv_halo's: {same}",
+                          flush=True)
+                    check(same, "stencil_spmv_boundary planes differ from the slab kernel's")
+                torch.cuda.synchronize()
+                for name, k, p, scale in checks:
+                    e = float(((k - p).abs() / (2 * eps * scale).clamp(min=torch.finfo(dt).tiny)
+                               ).max())
+                    print(f"parity {name:21s} {label:6s} {tname} {tag:9s} {tuple(k.shape)}: "
+                          f"{e:.3e} (limit 1, |k - p| / (2 eps |A||x|)); bitwise "
+                          f"{torch.equal(k, p)}", flush=True)
+                    check(e <= 1.0, f"{name} ({label}, {tag}, {tname}) disagrees with its "
+                                    "plain version")
+                if label == "path":
+                    # one grid, or 4 slabs with real halos: the same bits
+                    hp, hn = halo_planes(x3)
+                    yr = st.stencil_spmv_halo(x3, hp, hn, bz=st.pick_bz(nz), **kw)
+                    torch.cuda.synchronize()
+                    same = torch.equal(yr.reshape(xg.shape), ys)
+                    print(f"bitwise stencil_spmv ({S * nz}, {ny}, {nx}) {tname} {tag}: equal to "
+                          f"stencil_spmv_halo on {S} slabs with real halos: {same}", flush=True)
+                    check(same, "stencil_spmv differs from the halo kernel with real halos")
+                if label != "path" or dt != torch.float64 or aniso != (1.0, 1.0, 1.0):
+                    continue
+                by = x3.element_size()
+                N, pl = xg.numel(), ny * nx
+                k2 = 2 * (27 if stencil == "27pt" else 7)  # the JAX package's 2k flops
+                kb = dict(kw, bz=st.pick_bz(nz))  # the kernels' z-block check
+                errs = {n: float((k - p).abs().max()) for n, k, p, _ in checks}
+                hx = lambda: torch.cat([prev[:, None], x3, nxt[:, None]], 1)[:, None]
+                lib_h, _ = conv3d_library(stencil, aniso, hx, (0, 1, 1), x3)
+                lib_s, note_s = conv3d_library(stencil, aniso, lambda: xg[None, None], 1, x3)
+                print(f"library stencil SpMV: {note_s}", flush=True)
+                cases = {
+                    # bytes: each input read once, each output written once
+                    "stencil_spmv_halo": (((2 * N + 2 * S * pl) * by, k2 * N),
+                                          lambda: st.stencil_spmv_halo(x3, prev, nxt, **kb),
+                                          lambda: halo(x3, prev, nxt), lib_h),
+                    "stencil_spmv_boundary": ((8 * S * pl * by, k2 * 2 * S * pl),
+                                              lambda: st.stencil_spmv_boundary(x3, prev, nxt,
+                                                                               **kw),
+                                              lambda: ref.stencil_boundary_ref(x3, prev, nxt,
+                                                                               **kw),
+                                              None),
+                    "stencil_spmv": ((2 * N * by, k2 * N),
+                                     lambda: st.stencil_spmv(xg, **kb),
+                                     lambda: spmv(xg), lib_s),
+                    "jacobi_stencil_sweep": ((4 * N * by, (k2 + 4) * N),
+                                             lambda: js.jacobi_stencil_sweep(xg, b, dinv,
+                                                                             omega=0.8, **kb),
+                                             lambda: ref.jacobi_sweep_ref(xg, b, dinv,
+                                                                          omega=0.8, **kw),
+                                             None),
+                }
+                for name, (work, kern, plain, lib) in cases.items():
+                    row = time_row(name, work, kern, plain, lib, errs[name], tname,
+                                   tag=f"{stencil} ", lib_calls=3)
+                    if stencil == "7pt":
+                        rows[name] = row
+                del lib_h, lib_s, cases
+            del x3, prev, nxt, xg, b, dinv
+            torch.cuda.empty_cache()
+    return rows
+
+
 def matrix_powers_phase(sess, dev):
     """``matrix_powers`` on the ``halo_depth = s`` ELL partition against s
     serial ``spmv_shard`` calls on the flat partition, for a seeded x:
@@ -549,8 +748,6 @@ def profile_phase(sess, dev, variant: str = "hs", nrhs: int = 1, iters: int = 20
     SuiteSparse analogs' ``b = ones`` is ``A @ 1``, solved in one step)."""
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.cg import default_rhs_block, make_block_solver, make_solver
     from repro_torch.core.partition import pad_block, pad_vector
@@ -568,6 +765,19 @@ def profile_phase(sess, dev, variant: str = "hs", nrhs: int = 1, iters: int = 20
                             device=dev)
         bv = rng.standard_normal(sess.n) if seeded else np.ones(sess.n)
         b = torch.from_numpy(pad_vector(bv, mat)).to(dev)
+    label = f"{variant} r={nrhs}" if nrhs > 1 else variant
+    label += f" s={s}" if variant == "sstep" else ""
+    profile_solve(f"{label} [{sess.key[0]}, {mat.fmt}]", solve, b, iters, variant)
+
+
+def profile_solve(label, solve, b, iters: int, variant: str):
+    """Profile one ``solve(b, 0)`` that runs exactly ``iters`` iterations
+    (after one warm-up solve): device time per kernel name per loop
+    iteration and the device's busy share of the wall time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     x0 = torch.zeros_like(b)
     solve(b, x0)
     torch.cuda.synchronize()
@@ -585,9 +795,6 @@ def profile_phase(sess, dev, variant: str = "hs", nrhs: int = 1, iters: int = 20
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy_us = sum(t for _, t, _ in rows)
-    label = f"{variant} r={nrhs}" if nrhs > 1 else variant
-    label += f" s={s}" if variant == "sstep" else ""
-    label += f" [{sess.key[0]}, {mat.fmt}]"
     print(f"profile: {iters} {label} loop iterations, wall {wall * 1e3 / iters:.3f} ms/iter, "
           f"device busy {busy_us / 1e3 / iters:.3f} ms/iter "
           f"({100 * busy_us / 1e6 / wall:.1f}% of wall)", flush=True)
@@ -863,6 +1070,189 @@ def g3_paths(dev, sess, mat, launches):
 
 
 
+def matfree_spmv_phase(sess, dev):
+    """The stacked matrix-free SpMV (``make_matvec``) against scipy's
+    ``A @ x``: poisson7 at side SIDE over SHARDS slabs (``sess.a``) and
+    poisson27 at side 64, overlap on and off, for the ones vector and a
+    seeded x: ``max |y - A x| / (|A| |x|) <= 1e-12``. Prints the time of
+    one matrix-free SpMV beside the ELL ``spmv_shard`` on the same x."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.partition import pad_vector
+    from repro_torch.core.spmv import spmv_shard
+    from repro_torch.core.stencil_solver import make_matvec
+    from repro_torch.matrices.poisson import cube, poisson_scipy
+
+    rng = np.random.default_rng(0)
+    for p, a in ((cube(SIDE, "7pt"), sess.a), (cube(64, "27pt"), None)):
+        a = poisson_scipy(p) if a is None else a
+        absa = abs(a)
+        xr = rng.standard_normal(p.n)
+        for xname, xv in (("ones", np.ones(p.n)), ("random", xr)):
+            want, scale = a @ xv, absa @ np.abs(xv)
+            xd = torch.from_numpy(xv).to(dev).view(SHARDS, -1)
+            for ov in (True, False):
+                A = make_matvec(p, SHARDS, overlap=ov)
+                y = A(xd).reshape(-1).cpu().numpy()
+                err = float((np.abs(y - want) / scale).max())
+                ms = time_ms(lambda: A(xd), rounds=5)
+                print(f"matfree spmv {p.stencil} side {p.nx} overlap={ov} x={xname}: "
+                      f"max|y - A@x|/(|A|@|x|) = {err:.3e}; {ms:.4f} ms per SpMV", flush=True)
+                check(err <= 1e-12, f"matrix-free {p.stencil} SpMV disagrees with scipy")
+            if p.stencil == "7pt" and xname == "random":
+                m = sess.matrix()
+                xe = torch.from_numpy(pad_vector(xv, m)).to(dev)
+                print(f"ELL spmv_shard, same x: {time_ms(lambda: spmv_shard(m, xe), rounds=5):.4f}"
+                      " ms per SpMV", flush=True)
+        del absa
+
+
+def matfree_expected(variant, s=2):
+    """Launches of one matrix-free solve with ``it`` iterations on the split
+    schedule (4 slabs, nz_loc >= 2): every SpMV launches one
+    ``stencil_spmv_halo`` and one ``stencil_spmv_boundary``; hs runs 1 SpMV
+    before its loop, fcg 2 and pipecg 3 before theirs (whose iteration count
+    starts at 1), s-step 1 before and s per block; the vector kernels as on
+    ELL."""
+    def expected(it):
+        if variant == "sstep":
+            blocks = max(it // s, 1)
+            n_a = (f"1 + {s} x max({it} / {s}, 1)", 1 + s * blocks)
+            want = {k: (f"max({it} / {s}, 1)", blocks)
+                    for k in ("sstep_gram", "sstep_basis", "sstep_update")}
+        elif variant == "hs":
+            n_a = (f"1 + {it}", 1 + it)
+            want = {k: (f"{it}", it) for k in ("fused_dots_n", "fused_axpy2_dots", "fused_axpy")}
+        else:
+            pre, k2 = (2, 2) if variant == "fcg" else (3, 3)
+            n_a = (f"{pre} + ({it} - 1)", pre + it - 1)
+            want = {"fused_dots_n": (f"{it} - 1", it - 1),
+                    "fused_axpy2": (f"{k2} x ({it} - 1)", k2 * (it - 1))}
+        want.update(stencil_spmv_halo=n_a, stencil_spmv_boundary=n_a)
+        return want
+    return expected
+
+
+def matfree_solve(tag, p, variant, dev, launches, s=2):
+    """One matrix-free solve (``make_stencil_solver_fn``, b = ones, tol 1e-8)
+    after a warm-up, with every launch count set to 0 just before and read
+    just after: relres and each kernel's launches against the formula.
+    Returns ``(result, wall seconds)``."""
+    import torch
+
+    from repro_torch.core.stencil_solver import make_stencil_solver_fn
+
+    solve = make_stencil_solver_fn(p, SHARDS, variant=variant, tol=1e-8, maxiter=MAXITER, s=s,
+                                   device=dev)
+    b = torch.ones(SHARDS, p.n // SHARDS, dtype=torch.float64, device=dev)
+    x0 = torch.zeros_like(b)
+    solve(b, x0)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = solve(b, x0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = launch_counts()
+    relres = float(res.rel_residual)
+    check(relres <= 1e-8, f"{tag}: relres {relres} > 1e-8")
+    check(bool(torch.isfinite(res.x).all()), f"{tag}: non-finite solution")
+    want = matfree_expected(variant, s)(res.iters)
+    for name, n in got.items():
+        formula, value = want.get(name, ("0", 0))
+        print(f"launches {tag} {name:21s} {n} = {formula} -> {value}", flush=True)
+        check(n == value, f"{tag}: {name} launched {n} times, expected {value}")
+        launches[name] += n
+    return res, wall
+
+
+def matfree_paths(sess, dev, ell, launches):
+    """The matrix-free stencil CG on poisson7 at side SIDE over SHARDS slabs,
+    float64, b = ones (the main path's), tol 1e-8: hs, fcg, pipecg and
+    s-step (s = 2) — relres, an independent scipy residual, iterations
+    within 2 of the same variant's ELL count ``ell[variant] = (iters,
+    wall)`` in this run (s-step: a multiple of s, within s), ms per
+    iteration beside ELL's; then hs on poisson27 at side SIDE, its residual
+    from the plain ``stencil27_ref`` on the card (the scipy matrix would
+    hold 453 M entries)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.matrices.poisson import cube
+
+    s = SSTEP_S[0]
+    ones = np.ones(sess.n)
+    for variant in ("hs", "fcg", "pipecg", "sstep"):
+        tag = f"matfree-{variant}"
+        res, wall = matfree_solve(tag, cube(SIDE, "7pt"), variant, dev, launches, s)
+        x = res.x.reshape(-1).cpu().numpy()
+        sres = float(np.linalg.norm(ones - sess.a @ x) / np.linalg.norm(ones))
+        it, (it_ell, wall_ell) = res.iters, ell[variant]
+        print(f"{tag}: iters={it} (ELL {it_ell}) relres={float(res.rel_residual):.3e} "
+              f"scipy_relres={sres:.3e} wall={wall:.4f} s per_iter={1e3 * wall / it:.3f} ms "
+              f"(ELL {1e3 * wall_ell / it_ell:.3f} ms)", flush=True)
+        check(sres <= 1e-7, f"{tag}: scipy residual {sres} > 1e-7")
+        if variant == "sstep":
+            check(it % s == 0 and abs(it - it_ell) <= s,
+                  f"{tag}: {it} iterations against ELL's {it_ell}")
+        else:
+            check(abs(it - it_ell) <= 2, f"{tag}: {it} iterations against ELL's {it_ell}")
+    p27 = cube(SIDE, "27pt")
+    res, wall = matfree_solve("matfree-hs-27pt", p27, "hs", dev, launches)
+    bg = torch.ones((SIDE,) * 3, dtype=torch.float64, device=dev)
+    r = bg - ref.stencil27_ref(res.x.view((SIDE,) * 3))
+    tres = float(torch.linalg.vector_norm(r) / torch.linalg.vector_norm(bg))
+    print(f"matfree-hs-27pt: iters={res.iters} relres={float(res.rel_residual):.3e} "
+          f"stencil27_ref_relres={tres:.3e} wall={wall:.4f} s "
+          f"per_iter={1e3 * wall / res.iters:.3f} ms", flush=True)
+    check(tres <= 1e-7, f"matfree-hs-27pt: residual {tres} > 1e-7")
+
+
+def jacobi_path(dev, launches):
+    """Ten fused l1-Jacobi sweeps (``ops.jacobi_stencil_sweep``, omega 1) on
+    poisson7's global side³ grid, b = ones, ``dinv`` the inverse l1 row sums
+    ``1 / (2 d - A 1)`` (d = 6), the residual after each sweep from
+    ``ops.stencil_spmv``: it must fall monotonically, each sweep must agree
+    with the plain version (``|k - p| <= 2 eps (|x| + |dinv| (|b| +
+    |A||x|))``), and the last residual with the plain ``stencil7_ref``'s.
+    Launch counts: 10 sweeps, 11 SpMVs."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    shape = (SIDE,) * 3
+    b = torch.ones(shape, dtype=torch.float64, device=dev)
+    dinv = 1.0 / (12.0 - ref.stencil7_ref(torch.ones_like(b)))
+    x = torch.zeros_like(b)
+    eps = torch.finfo(b.dtype).eps
+    reset_launches()
+    res = [float(torch.linalg.vector_norm(b - ops.stencil_spmv(x)))]
+    worst = 0.0
+    for _ in range(10):
+        xn = ops.jacobi_stencil_sweep(x, b, dinv)
+        xp = ref.jacobi_sweep_ref(x, b, dinv)
+        scale = x.abs() + dinv * (b + 12.0 * x.abs() - ref.stencil7_ref(x.abs()))
+        worst = max(worst, float(((xn - xp).abs() / (2 * eps * scale)).max()))
+        x = xn
+        res.append(float(torch.linalg.vector_norm(b - ops.stencil_spmv(x))))
+    got = launch_counts()
+    plain = float(torch.linalg.vector_norm(b - ref.stencil7_ref(x)))
+    print(f"jacobi: residual {res[0]:.6e} -> {res[-1]:.6e} over 10 sweeps "
+          f"(plain stencil7_ref: {plain:.6e}); worst sweep |k - p| / (2 eps scale) = "
+          f"{worst:.3e}", flush=True)
+    check(all(r1 < r0 for r0, r1 in zip(res, res[1:])), f"jacobi residuals not falling: {res}")
+    check(worst <= 1.0, "jacobi_stencil_sweep disagrees with its plain version")
+    check(abs(plain - res[-1]) <= 1e-12 * res[-1], "jacobi residual disagrees with the plain one")
+    want = {"jacobi_stencil_sweep": ("10", 10), "stencil_spmv": ("1 + 10", 11)}
+    for name, n in got.items():
+        formula, value = want.get(name, ("0", 0))
+        print(f"launches jacobi {name:21s} {n} = {formula} -> {value}", flush=True)
+        check(n == value, f"jacobi: {name} launched {n} times, expected {value}")
+        launches[name] += n
+
+
 def main():
     import numpy as np
     import torch
@@ -894,6 +1284,8 @@ def main():
     rows.update(block_kernel_phase(dev))
     torch.cuda.empty_cache()
     rows.update(sstep_kernel_phase(dev))
+    torch.cuda.empty_cache()
+    rows.update(stencil_kernel_phase(dev))
     torch.cuda.empty_cache()
 
     # --- the main path: hs CG + the Ginkgo-analog leg, float64 ------------
@@ -961,6 +1353,15 @@ def main():
     print(f"sstep s={s1} seeded: iters {it4} against hs {it_hs5} on the same b", flush=True)
     check(it4 % s1 == 0, f"sstep s={s1} iterations {it4} not a multiple of {s1}")
 
+    # --- the matrix-free stencil path: SpMV, solves, Jacobi sweeps ---------
+    torch.cuda.empty_cache()
+    matfree_spmv_phase(sess, dev)
+    ell = {v: (reps[v].summary["BCMGX-analog"]["iters"], reps[v].summary["BCMGX-analog"]["wall_s"])
+           for v in ("fcg", "pipecg")}
+    ell.update(hs=(hs_iters, hs_wall), sstep=(it_ss, w_ss))
+    matfree_paths(sess, dev, ell, launches)
+    jacobi_path(dev, launches)
+
     # --- the interior formats -------------------------------------------
     torch.cuda.empty_cache()
     rep_b = solve_path("p7-bcsr", api, spec,
@@ -989,6 +1390,13 @@ def main():
     profile_phase(sess_bone, dev, "hs", 1, fmt="auto", seeded=True)
     profile_phase(sess_bone, dev, "hs", NRHS, fmt="auto", seeded=True)
     profile_phase(sess_g3, dev, "hs", 1, fmt="auto", seeded=True)
+    from repro_torch.core.stencil_solver import make_stencil_solver_fn
+    from repro_torch.matrices.poisson import cube
+
+    profile_solve("hs [poisson7, matrix-free]",
+                  make_stencil_solver_fn(cube(SIDE, "7pt"), SHARDS, tol=1e-200, maxiter=20,
+                                         device=dev),
+                  torch.ones(SHARDS, sess.n // SHARDS, dtype=torch.float64, device=dev), 20, "hs")
 
     keys =("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -77,6 +77,17 @@ def balanced_partition(n_global: int, n_shards: int) -> RowPartition:
     return RowPartition(n_global, tuple(int(s) for s in starts))
 
 
+def plane_partition(n_global: int, plane: int, n_shards: int) -> RowPartition:
+    """Partition along whole z-planes of size ``plane`` (stencil slabs)."""
+    nz = n_global // plane
+    if nz * plane != n_global:
+        raise ValueError(f"n_global={n_global} must be a multiple of plane={plane}")
+    if nz < n_shards:
+        raise ValueError(f"cannot slab-partition nz={nz} over {n_shards} shards")
+    zs = np.linspace(0, nz, n_shards + 1).astype(np.int64)
+    return RowPartition(n_global, tuple(int(z) * plane for z in zs))
+
+
 # ---------------------------------------------------------------------------
 # Halo plan
 # ---------------------------------------------------------------------------
@@ -871,6 +882,144 @@ def partition_csr(
         ghost_col=_to_torch(ghost[1], device),
         ghost_pos=_to_torch(ghost[2], device),
         halo_depth=halo_depth if mode != "allgather" else 1,
+    )
+
+
+def partition_stencil(
+    p, n_shards: int, dtype=np.float64, mode: str = "ring",
+    fmt: str = "ell", block: tuple[int, int] = (4, 4), device="cpu",
+) -> DistMat:
+    """A :class:`DistMat` for a Poisson stencil problem built WITHOUT the
+    global matrix, straight from the stencil (``matrices/poisson.py``).
+
+    Slab (z-plane) partition (:func:`plane_partition`); both stencils reach
+    exactly +-1 plane, so the ring plan has shifts (-1, +1) of width
+    ``nx*ny`` (no exchange on a single shard). ``mode="allgather"`` builds
+    the Ginkgo-analog layout instead (external columns in the padded-global
+    layout). ``fmt`` selects the interior as in :func:`partition_csr`;
+    stencil rows are uniform-width, so ``"auto"`` resolves to ELL and the
+    other formats exist for A/B measurements only. The arrays equal those
+    of ``repro.core.partition.partition_stencil`` byte for byte; they are
+    built for every row of every shard at once (the JAX package loops over
+    the shards) and moved to ``device`` at the end.
+    """
+    from repro_torch.matrices.poisson import stencil_offsets, stencil_values
+
+    if fmt not in FORMATS + ("auto",):
+        raise ValueError(f"unknown interior format {fmt!r}; want {FORMATS} or 'auto'")
+    if mode not in ("ring", "allgather"):
+        raise ValueError(f"unknown halo mode {mode!r}; want 'ring' or 'allgather'")
+    part = plane_partition(p.n, p.plane, n_shards)
+    S, R, H = n_shards, part.max_own, p.plane
+    starts = np.asarray(part.row_starts, np.int64)
+    offs = stencil_offsets(p.stencil)
+    svals = stencil_values(p)
+    # entries per row reaching planes z-1 / z+1
+    k_ext = max(int((offs[:, 2] == -1).sum()), int((offs[:, 2] == 1).sum()))
+    if S > 1 and mode == "ring":
+        shifts, widths = (-1, 1), (H, H)
+    else:
+        shifts, widths = (), ()
+    plan = HaloPlan(mode if S > 1 else "ring", shifts, widths, R, S)
+
+    # every global row and its k stencil neighbours
+    g = np.arange(p.n, dtype=np.int64)
+    shard = part.owner_of(g)
+    lo = starts[shard][:, None]
+    hi = starts[shard + 1][:, None]
+    lrow = g - lo[:, 0]
+    nx_ = (g % p.nx)[:, None] + offs[None, :, 0]
+    ny_ = (g // p.nx % p.ny)[:, None] + offs[None, :, 1]
+    nz_ = (g // H)[:, None] + offs[None, :, 2]
+    valid = ((nx_ >= 0) & (nx_ < p.nx) & (ny_ >= 0) & (ny_ < p.ny)
+             & (nz_ >= 0) & (nz_ < p.nz))
+    gcol = nx_ + p.nx * (ny_ + p.ny * nz_)
+    del nx_, ny_, nz_
+    vals = np.broadcast_to(svals[None, :], valid.shape) * valid
+    own = valid & (gcol >= lo) & (gcol < hi)
+    ext = valid & ~own
+
+    data_loc = np.zeros((S, R, len(offs)), dtype)
+    col_loc = np.zeros((S, R, len(offs)), np.int32)
+    data_loc[shard, lrow] = np.where(own, vals, 0.0).astype(dtype)
+    col_loc[shard, lrow] = np.where(own, gcol - lo, 0).astype(np.int32)
+
+    # boundary rows live in the slab's first/last z-plane only: at most 2H
+    # ghost-touching rows per shard (H for the edge shards / S == 2)
+    B_ub = min(2 * H, R) if S > 1 else 1
+    data_ext = np.zeros((S, B_ub, max(k_ext, 1)), dtype)
+    col_ext = np.zeros((S, B_ub, max(k_ext, 1)), np.int32)
+    bnd_rows = np.zeros((S, B_ub), np.int32)
+    n_bnd = np.zeros(S, np.int64)
+    send_sel = np.zeros((S, max(sum(widths), 1)), np.int32)
+    if S > 1:
+        if mode == "ring":
+            # left plane (z0 - 1) -> buffer 0, right plane (z1) -> buffer 1
+            pos = gcol % H
+            lcol = (np.where(ext & (gcol < lo), R + pos, 0)
+                    + np.where(ext & (gcol >= hi), R + H + pos, 0))
+        else:
+            gsafe = np.where(ext, gcol, lo)
+            owners = part.owner_of(gsafe.ravel()).reshape(gsafe.shape)
+            lcol = np.where(ext, owners * R + (gsafe - starts[owners]), 0)
+        de = np.where(ext, vals, 0.0).astype(dtype)
+        # compact each row's ext entries into k_ext slots, ext first
+        order = np.argsort(~ext, axis=1, kind="stable")
+        de_s = np.take_along_axis(de, order, axis=1)[:, :k_ext]
+        ce_s = np.take_along_axis(np.where(ext, lcol, 0).astype(np.int32), order,
+                                  axis=1)[:, :k_ext]
+        # ... and the ghost-touching rows into each shard's boundary block
+        bnd = np.flatnonzero(ext.any(axis=1))
+        b_shard = shard[bnd]
+        bj = _rank_in_groups(b_shard)
+        n_bnd = np.bincount(b_shard, minlength=S)
+        data_ext[b_shard, bj] = de_s[bnd]
+        col_ext[b_shard, bj] = ce_s[bnd]
+        bnd_rows[b_shard, bj] = lrow[bnd].astype(np.int32)
+        # send selectors: for shift -1 shard j sends its LAST plane to j+1,
+        # for shift +1 its FIRST plane to j-1
+        n_own = np.diff(starts)
+        ar = np.arange(H, dtype=np.int64)
+        off = 0
+        for d, w in zip(shifts, widths):
+            send_sel[:, off: off + H] = (n_own[:, None] - H + ar) if d == -1 else ar
+            off += w
+
+    B = max(int(n_bnd.max()), 1)
+    if fmt in ("ell", "auto"):
+        interior = ELLBlock(data=_to_torch(data_loc, device), col=_to_torch(col_loc, device))
+    else:
+        interior = pack_interior(fmt, _ell_entries(data_loc, col_loc, part.row_starts),
+                                 dtype=dtype, block=tuple(block), device=device)
+    return DistMat(
+        interior=interior,
+        data_ext=_to_torch(data_ext[:, :B], device),
+        col_ext=_to_torch(col_ext[:, :B], device),
+        bnd_rows=_to_torch(bnd_rows[:, :B], device),
+        send_sel=_to_torch(send_sel, device),
+        plan=plan,
+        n_global=p.n,
+        row_starts=part.row_starts,
+        n_bnd=tuple(int(v) for v in n_bnd),
+    )
+
+
+def _ell_entries(data: np.ndarray, col: np.ndarray, row_starts) -> InteriorEntries:
+    """The interior entries of a stacked ``(S, R, k)`` ELL block, in CSR
+    order — the JAX package's ``_ell_to_shard_rows`` in flat form. Entries
+    are identified by ``data != 0 or col != 0``, the repo-wide padding
+    convention (a genuine zero-valued entry at column 0, which no stencil
+    produces, would be dropped)."""
+    keep = (data != 0) | (col != 0)
+    s, r, j = np.nonzero(keep)
+    slot = (np.cumsum(keep, axis=2) - 1)[s, r, j]
+    cnt = keep.sum(axis=2)
+    n_own = np.diff(np.asarray(row_starts, np.int64))
+    row_len = np.concatenate([cnt[sh, : n_own[sh]] for sh in range(len(n_own))])
+    return InteriorEntries(
+        shard=s.astype(np.int64), row=r.astype(np.int64), col=col[s, r, j].astype(np.int64),
+        val=data[s, r, j], slot=slot.astype(np.int64), row_len=row_len.astype(np.int64),
+        row_starts=tuple(row_starts), R=data.shape[1],
     )
 
 

@@ -24,7 +24,8 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("fused_reductions", "block_reductions", "sstep_reductions", "spmv_bcsr")
+SOURCES = ("fused_reductions", "block_reductions", "sstep_reductions", "spmv_bcsr",
+           "spmv_stencil")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

@@ -3,7 +3,8 @@
 Two backends, chosen by the device the operands live on:
 
 * ``cuda``  — the hand-written Hopper kernels (kernels/fused_reductions.py,
-  kernels/spmv_bcsr.py); every CUDA tensor goes here, always.
+  kernels/spmv_bcsr.py, kernels/spmv_stencil.py); every CUDA tensor goes
+  here, always.
 * ``torch`` — the plain PyTorch versions (kernels/ref.py), for CPU tensors.
 
 ``ops_for(None)`` follows the operands. An explicit choice only checks:
@@ -32,6 +33,7 @@ from repro_torch.energy import trace
 from repro_torch.energy.accounting import OpCounts
 from repro_torch.kernels import fused_reductions as fr
 from repro_torch.kernels import spmv_bcsr as sb
+from repro_torch.kernels import spmv_stencil as st
 
 BACKENDS = ("cuda", "torch")
 
@@ -42,8 +44,9 @@ VECTOR_OPS = (
     "sstep_gram", "sstep_basis", "sstep_update",
 )
 # The SpMV is accounted separately (its traffic is the matrix term);
-# bcsr_spmv is the blocked interior matvec of the BCSR-format DistMat and
-# bcsr_spmm its multi-RHS sibling.
+# stencil_boundary is the overlap path's two-plane edge fix-up; bcsr_spmv
+# is the blocked interior matvec of the BCSR-format DistMat and bcsr_spmm
+# its multi-RHS sibling.
 SPMV_OPS = ("stencil_matvec", "stencil_boundary", "bcsr_spmv", "bcsr_spmm")
 
 
@@ -322,6 +325,53 @@ class OpSet:
         return fr.sstep_update(a, q, wq, x, r)
 
     # -- SpMV -----------------------------------------------------------------
+
+    def stencil_matvec(self, x3, prev_halo, next_halo, *, stencil="7pt",
+                       aniso=(1.0, 1.0, 1.0)):
+        """Local-slab matrix-free SpMV with explicit z-halo planes.
+
+        ``x3`` holds the stacked ``(S, nz_loc, ny, nx)`` slabs (or one
+        ``(nz_loc, ny, nx)`` slab), ``prev_halo``/``next_halo`` the ``(S,
+        ny, nx)`` (``(ny, nx)``) neighbour boundary planes, zeros at the
+        global edges. Returns the product, of ``x3``'s shape. Accounted per
+        shard as one full-slab HBM sweep plus the two halo planes
+        (matrix-free: no value/index traffic).
+        """
+        self._check("stencil_matvec", x3)
+        nz, ny, nx = x3.shape[-3:]
+        n, pl, ib = nz * ny * nx, ny * nx, x3.element_size()
+        k = {"7pt": 7, "27pt": 27}[stencil]
+        # read the slab and both halo planes once, write the result slab once
+        _record(
+            "stencil_matvec",
+            OpCounts(flops=2.0 * k * n, hbm_bytes=float(n + pl + pl + n) * ib),
+        )
+        return st.stencil_spmv_halo(x3, prev_halo, next_halo, stencil=stencil,
+                                    aniso=aniso, bz=st.pick_bz(nz))
+
+    def stencil_boundary(self, x3, prev_halo, next_halo, *, stencil="7pt",
+                         aniso=(1.0, 1.0, 1.0), out=None):
+        """First + last output planes of the slab SpMV (overlap fix-up).
+
+        The communication-hiding stencil path runs :meth:`stencil_matvec`
+        with zero halos beside the exchange, then patches the two
+        slab-edge output planes with this op once the halo planes arrive.
+        Args as in :meth:`stencil_matvec` (``nz_loc >= 2``); returns ``(S,
+        2, ny, nx)`` (``(2, ny, nx)``): output planes 0 and ``nz_loc - 1``,
+        bitwise equal to the single-call planes — or, with ``out``, writes
+        them into ``out``'s planes 0 and ``nz_loc - 1`` and returns it.
+        Accounted as plane-sized traffic only (6 planes read, 2 written).
+        """
+        self._check("stencil_boundary", x3)
+        ny, nx = x3.shape[-2:]
+        n_pl, ib = ny * nx, x3.element_size()
+        k = {"7pt": 7, "27pt": 27}[stencil]
+        _record(
+            "stencil_boundary",
+            OpCounts(flops=2.0 * k * 2 * n_pl, hbm_bytes=8.0 * n_pl * ib),
+        )
+        return st.stencil_spmv_boundary(x3, prev_halo, next_halo, stencil=stencil,
+                                        aniso=aniso, out=out)
 
     def bcsr_spmv(self, blocks, bcol, x, *, n_brows, bpr, n_out=None):
         """Uniform-layout block-CSR SpMV (the BCSR DistMat interior).

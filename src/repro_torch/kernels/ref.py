@@ -1,13 +1,13 @@
 """Plain PyTorch versions of the port's hand-written kernels.
 
-Counterpart of ``repro.kernels.ref`` for the kernels ported so far. Each
-function computes what its kernel computes, on the stacked ``(S, R)``
-layout (or a single ``(n,)`` vector) — ``(S, R, r)`` column blocks (or one
-``(n, r)`` block) for the block and s-step kernels — and returns the same
-per-shard partials: the kernel wrappers in ``kernels/fused_reductions.py`` and
-``kernels/spmv_bcsr.py`` use these for CPU tensors, and the tests and
-``chip_smoke.py`` hold the kernels against them. Sums accumulate in the
-input dtype, as the kernels do.
+Counterpart of ``repro.kernels.ref``. Each function computes what its
+kernel computes, on the stacked ``(S, R)`` layout (or a single ``(n,)``
+vector) — ``(S, R, r)`` column blocks (or one ``(n, r)`` block) for the
+block and s-step kernels, ``(S, nz, ny, nx)`` slabs (or one ``(nz, ny,
+nx)`` grid) for the stencil kernels — and returns the same per-shard
+partials: the kernel wrappers in ``kernels/`` use these for CPU tensors,
+and the tests and ``chip_smoke.py`` hold the kernels against them. Sums
+accumulate in the input dtype, as the kernels do.
 
 Scalars may be Python numbers, 0-d tensors, or ``(S,)`` tensors (one per
 shard).
@@ -162,3 +162,123 @@ def sstep_basis_ref(b, dinv, qp, pb, wp, wb):
 def sstep_update_ref(a, q, wq, x, r):
     """``(x + Q @ a, r − WQ @ a)`` for an ``(s,)`` coefficient vector."""
     return x + q @ a, r - wq @ a
+
+
+# ---------------------------------------------------------------------------
+# Matrix-free stencil SpMV (7pt / 27pt, Dirichlet): one (nz, ny, nx) grid, or
+# S stacked slabs (S, nz, ny, nx) with (S, ny, nx) halo planes
+# ---------------------------------------------------------------------------
+
+
+def stencil_coefs(stencil: str, aniso, dtype) -> tuple[float, float, float, float]:
+    """``(diag, ax, ay, az)`` of the stencil, each rounded to ``dtype`` on
+    the host — the JAX package forms them from Python floats in the array's
+    type. 7pt: ``diag = 2(ax + ay + az)``; 27pt: ``diag = 27`` (the centre's
+    multiplier; ``aniso`` is ignored)."""
+    if stencil not in ("7pt", "27pt"):
+        raise ValueError(f"unknown stencil {stencil!r}; want '7pt' or '27pt'")
+    if stencil == "27pt":
+        vals = (27.0, 0.0, 0.0, 0.0)
+    else:
+        ax, ay, az = (float(a) for a in aniso)
+        vals = (2.0 * (ax + ay + az), ax, ay, az)
+    return tuple(_round(v, dtype) for v in vals)
+
+
+def _round(v, dtype) -> float:
+    """``v`` rounded to ``dtype`` (exactly representable there)."""
+    return float(torch.tensor(float(v), dtype=dtype))
+
+
+def _shift(x: torch.Tensor, d: int, axis: int) -> torch.Tensor:
+    """Shift with zero fill along ``axis``: result[i] = x[i - d] (zeros
+    flow in)."""
+    if d == 0:
+        return x
+    n = x.shape[axis]
+    shape = list(x.shape)
+    shape[axis] = abs(d)
+    z = x.new_zeros(shape)
+    if d > 0:
+        return torch.cat([z, x.narrow(axis, 0, n - d)], dim=axis)
+    return torch.cat([x.narrow(axis, -d, n + d), z], dim=axis)
+
+
+def _s9(e: torch.Tensor) -> torch.Tensor:
+    """The 3x3 (y, x) neighbourhood sum of every plane, over dy then dx."""
+    s9 = torch.zeros_like(e)
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            s9 = s9 + _shift(_shift(e, dx, -1), dy, -2)
+    return s9
+
+
+def stencil7_ref(x: torch.Tensor, aniso=(1.0, 1.0, 1.0)) -> torch.Tensor:
+    """y = A7 @ x on the (nz, ny, nx) grid (each slab of a stacked
+    ``(S, nz, ny, nx)`` its own grid), homogeneous Dirichlet."""
+    diag, ax, ay, az = stencil_coefs("7pt", aniso, x.dtype)
+    y = diag * x
+    y = y - ax * (_shift(x, 1, -1) + _shift(x, -1, -1))
+    y = y - ay * (_shift(x, 1, -2) + _shift(x, -1, -2))
+    y = y - az * (_shift(x, 1, -3) + _shift(x, -1, -3))
+    return y
+
+
+def stencil27_ref(x: torch.Tensor) -> torch.Tensor:
+    """y = A27 @ x (HPCG stencil: diag 26, all 26 neighbours -1). The z-sum
+    runs ``s9[z+1] + s9[z] + s9[z-1]``, as the JAX package's oracle does."""
+    s9 = _s9(x)
+    s27 = _shift(s9, -1, -3) + s9 + _shift(s9, 1, -3)
+    return 27.0 * x - s27
+
+
+def stencil_halo_ref(x, prev_halo, next_halo, *, stencil="7pt", aniso=(1.0, 1.0, 1.0)):
+    """Local-slab stencil SpMV with explicit z-boundary planes: ``x`` is a
+    ``(nz, ny, nx)`` slab with ``(ny, nx)`` halo planes, or ``(S, nz, ny,
+    nx)`` slabs with ``(S, ny, nx)`` planes. Zero halo planes reproduce the
+    global Dirichlet edges. The 27pt z-sum runs ``s9[z-1] + s9[z] +
+    s9[z+1]``, the order of the Pallas kernels (and of the CUDA ones)."""
+    ext = torch.cat([prev_halo.unsqueeze(-3), x, next_halo.unsqueeze(-3)], dim=-3)
+    c = ext[..., 1:-1, :, :]
+    diag, ax, ay, az = stencil_coefs(stencil, aniso, x.dtype)
+    if stencil == "7pt":
+        y = diag * c
+        y = y - ax * (_shift(c, 1, -1) + _shift(c, -1, -1))
+        y = y - ay * (_shift(c, 1, -2) + _shift(c, -1, -2))
+        y = y - az * (ext[..., :-2, :, :] + ext[..., 2:, :, :])
+        return y
+    s9 = _s9(ext)
+    return diag * c - (s9[..., :-2, :, :] + s9[..., 1:-1, :, :] + s9[..., 2:, :, :])
+
+
+def stencil_boundary_ref(x, prev_halo, next_halo, *, stencil="7pt", aniso=(1.0, 1.0, 1.0)):
+    """Output planes 0 and nz-1 of :func:`stencil_halo_ref` (nz >= 2), as
+    ``(2, ny, nx)`` (``(S, 2, ny, nx)`` for stacked slabs), computed on
+    one-plane sub-slabs — bitwise the slab oracle's planes."""
+    y0 = stencil_halo_ref(x[..., :1, :, :], prev_halo, x[..., 1, :, :],
+                          stencil=stencil, aniso=aniso)
+    y1 = stencil_halo_ref(x[..., -1:, :, :], x[..., -2, :, :], next_halo,
+                          stencil=stencil, aniso=aniso)
+    return torch.cat([y0, y1], dim=-3)
+
+
+def jacobi_stencil_ref(x, b, dinv, *, stencil="7pt", aniso=(1.0, 1.0, 1.0), omega=1.0):
+    """One fused l1-Jacobi sweep: x + omega * dinv * (b - A x)."""
+    ax = stencil7_ref(x, aniso) if stencil == "7pt" else stencil27_ref(x)
+    return x + _round(omega, x.dtype) * dinv * (b - ax)
+
+
+def stencil_spmv_ref(x, *, stencil="7pt", aniso=(1.0, 1.0, 1.0)):
+    """The plain version of the single-grid kernel: :func:`stencil_halo_ref`
+    with zero halo planes, in the kernels' order. Bitwise
+    :func:`stencil7_ref` for 7pt; for 27pt it differs from
+    :func:`stencil27_ref` only in the order of the z-sum."""
+    z = x.new_zeros(x.shape[:-3] + x.shape[-2:])
+    return stencil_halo_ref(x, z, z, stencil=stencil, aniso=aniso)
+
+
+def jacobi_sweep_ref(x, b, dinv, *, stencil="7pt", aniso=(1.0, 1.0, 1.0), omega=1.0):
+    """The plain version of the fused sweep kernel: :func:`jacobi_stencil_ref`
+    with the product of :func:`stencil_spmv_ref` (the kernels' order)."""
+    y = stencil_spmv_ref(x, stencil=stencil, aniso=aniso)
+    return x + _round(omega, x.dtype) * dinv * (b - y)

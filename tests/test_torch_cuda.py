@@ -318,3 +318,145 @@ def test_cuda_sstep_never_takes_the_plain_version(cuda_device, monkeypatch):
     with pytest.raises(ValueError, match=f"s <= {fr.MAX_S}"):
         fr.sstep_gram(big, big, big, big[..., 0].contiguous())
     assert fr.sstep_gram.launches == n0[0] + 1
+
+
+STENCIL_CASES = [("7pt", (1.0, 1.0, 1.0)), ("7pt", (1.0, 2.5, 7.0)), ("27pt", (1.0, 1.0, 1.0))]
+STENCIL_SHAPES = [(4, 16, 64, 64), (3, 5, 33, 45), (2, 1, 17, 23)]  # (S, nz, ny, nx)
+
+
+def _card_stencil(dev, shape, dtype, seed=0):
+    """Seeded slabs ``(S, nz, ny, nx)``, halo planes, and a sweep's b/dinv."""
+    g = torch.Generator(device=dev).manual_seed(seed + sum(shape))
+    x = torch.randn(shape, dtype=dtype, device=dev, generator=g)
+    prev, nxt = (torch.randn(shape[:1] + shape[2:], dtype=dtype, device=dev, generator=g)
+                 for _ in range(2))
+    b = torch.randn(shape, dtype=dtype, device=dev, generator=g)
+    dinv = torch.rand(shape, dtype=dtype, device=dev, generator=g) + 0.05
+    return x, prev, nxt, b, dinv
+
+
+def _stencil_err(k, p, scale, dtype) -> float:
+    """Largest ``|k - p| / (2 eps |A||x|)``: the kernels repeat the plain
+    versions' operations in their order, each rounded once (no FMA), so the
+    expected error is 0; 1 is one rounding of the whole product."""
+    eps = torch.finfo(dtype).eps
+    return float(((k - p).abs() / (2 * eps * scale).clamp(min=torch.finfo(dtype).tiny)).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("stencil,aniso", STENCIL_CASES)
+@pytest.mark.parametrize("shape", STENCIL_SHAPES)
+def test_cuda_stencil_kernels_match_plain(cuda_device, shape, stencil, aniso, dtype):
+    from repro_torch.kernels import jacobi_stencil as js
+    from repro_torch.kernels import spmv_stencil as st
+
+    x, prev, nxt, b, dinv = _card_stencil(cuda_device, shape, dtype)
+    S, nz = shape[:2]
+    xg = x.view((S * nz,) + shape[2:])
+    bg, dg = b.view(xg.shape), dinv.view(xg.shape)
+    kw = dict(stencil=stencil, aniso=aniso)
+    d = 26.0 if stencil == "27pt" else 2.0 * sum(aniso)
+    n0 = st.launches()
+    yh = st.stencil_spmv_halo(x, prev, nxt, bz=1, **kw)
+    ys = st.stencil_spmv(xg, bz=1, **kw)
+    yj = js.jacobi_stencil_sweep(xg, bg, dg, omega=0.8, bz=1, **kw)
+    torch.cuda.synchronize()
+    assert st.launches()["stencil_spmv_halo"] == n0["stencil_spmv_halo"] + 1
+    assert st.launches()["stencil_spmv"] == n0["stencil_spmv"] + 1
+    sh = 2 * d * x.abs() - ref.stencil_halo_ref(x.abs(), prev.abs(), nxt.abs(), **kw)
+    ss = 2 * d * xg.abs() - ref.stencil_spmv_ref(xg.abs(), **kw)
+    assert _stencil_err(yh, ref.stencil_halo_ref(x, prev, nxt, **kw), sh, dtype) <= 1
+    assert _stencil_err(ys, ref.stencil_spmv_ref(xg, **kw), ss, dtype) <= 1
+    pj = ref.jacobi_sweep_ref(xg, bg, dg, omega=0.8, **kw)
+    assert _stencil_err(yj, pj, xg.abs() + 0.8 * dg * (bg.abs() + ss), dtype) <= 1
+    if nz >= 2:
+        yb = st.stencil_spmv_boundary(x, prev, nxt, **kw)
+        assert yb.shape == (S, 2) + shape[2:]
+        assert _stencil_err(yb, ref.stencil_boundary_ref(x, prev, nxt, **kw),
+                            sh[:, [0, nz - 1]], dtype) <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("stencil,aniso", STENCIL_CASES)
+def test_cuda_stencil_boundary_planes_bitwise_equal_slab_kernel(cuda_device, stencil, aniso,
+                                                                dtype):
+    """The boundary kernel's planes (and its ``out=`` form) equal the slab
+    kernel's planes 0 and nz-1 bit for bit — both call one point function
+    written with the round-to-nearest intrinsics — and one grid equals 4
+    slabs with real halos."""
+    from repro_torch.kernels import spmv_stencil as st
+
+    kw = dict(stencil=stencil, aniso=aniso)
+    for shape in ((4, 16, 64, 64), (3, 2, 33, 45), (2, 5, 17, 23)):
+        x, prev, nxt, _, _ = _card_stencil(cuda_device, shape, dtype, seed=1)
+        nz = shape[1]
+        yh = st.stencil_spmv_halo(x, prev, nxt, bz=1, **kw)
+        yb = st.stencil_spmv_boundary(x, prev, nxt, **kw)
+        out = torch.zeros_like(x)
+        assert st.stencil_spmv_boundary(x, prev, nxt, out=out, **kw) is out
+        torch.cuda.synchronize()
+        assert torch.equal(yb[:, 0], yh[:, 0]) and torch.equal(yb[:, 1], yh[:, -1])
+        assert torch.equal(out[:, [0, nz - 1]], yh[:, [0, nz - 1]])
+        assert not out[:, 1:-1].any()
+    x = _card_stencil(cuda_device, (4, 8, 33, 45), dtype, seed=2)[0]
+    z = torch.zeros_like(x[:1, 0])
+    prev = torch.cat([z, x[:-1, -1]])
+    nxt = torch.cat([x[1:, 0], z])
+    y4 = st.stencil_spmv_halo(x, prev, nxt, bz=1, **kw)
+    assert torch.equal(y4.view(32, 33, 45), st.stencil_spmv(x.view(32, 33, 45), bz=1, **kw))
+
+
+@pytest.mark.cuda
+def test_cuda_stencil_never_takes_the_plain_version(cuda_device, monkeypatch):
+    """CUDA tensors launch the stencil kernels through the dispatch ops and
+    the wrappers even with the plain versions made to fail; non-contiguous
+    operands raise on the card and launch nothing."""
+    from repro_torch.kernels import dispatch as kd
+    from repro_torch.kernels import jacobi_stencil as js
+    from repro_torch.kernels import spmv_stencil as st
+
+    x, prev, nxt, b, dinv = _card_stencil(cuda_device, (2, 4, 9, 11), torch.float64)
+
+    def boom(*a, **k):
+        raise AssertionError("a CUDA tensor took the plain version")
+
+    for name in ("stencil_halo_ref", "stencil_boundary_ref", "stencil_spmv_ref",
+                 "jacobi_sweep_ref"):
+        monkeypatch.setattr(ref, name, boom)
+    n0 = dict(st.launches(), **js.launches())
+    ops = kd.ops_for(None)
+    y = ops.stencil_matvec(x, prev, nxt)
+    ops.stencil_boundary(x, prev, nxt, out=y)
+    st.stencil_spmv(x, bz=1)
+    js.jacobi_stencil_sweep(x, b, dinv, bz=1)
+    torch.cuda.synchronize()
+    assert dict(st.launches(), **js.launches()) == {k: v + 1 for k, v in n0.items()}
+    with pytest.raises(ValueError, match="backend 'torch'"):
+        kd.ops_for("torch").stencil_matvec(x, prev, nxt)
+    with pytest.raises(ValueError, match="contiguous"):
+        st.stencil_spmv(x.transpose(2, 3), bz=1)
+    assert st.stencil_spmv.launches == n0["stencil_spmv"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["hs", "fcg", "pipecg", "sstep"])
+def test_cuda_matrix_free_solve_matches_cpu(cuda_device, variant):
+    """The matrix-free solve on the card (stencil kernels + fused vector
+    kernels) against the same solve on the CPU (plain versions): iterations
+    within 1 (the vector kernels sum in another order) and x within 1e-9."""
+    from repro_torch.core.stencil_solver import make_stencil_solver_fn
+    from repro_torch.matrices.poisson import PoissonProblem
+
+    p = PoissonProblem(24, 20, 32, "7pt")
+    b = torch.ones(4, p.n // 4, dtype=torch.float64)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        solve = make_stencil_solver_fn(p, 4, variant=variant, tol=1e-10, maxiter=1000,
+                                       device=dev)
+        res[dev] = solve(b, torch.zeros_like(b))
+    assert abs(res["cuda"].iters - res["cpu"].iters) <= (2 if variant == "sstep" else 1)
+    assert float(res["cuda"].rel_residual) <= 1e-10
+    xc, xg = res["cpu"].x, res["cuda"].x.cpu()
+    assert float((xg - xc).abs().max()) <= 1e-9 * float(xc.abs().max())
