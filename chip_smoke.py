@@ -8,7 +8,8 @@ CUDA card with sm_90a). It
 1. prints the card (``nvidia-smi`` name and power limit), its idle power
    draw, the torch and CUDA versions, and builds every CUDA kernel of the
    port from the sources in the checkout (one ``nvcc`` per source, all
-   started together), printing the build time;
+   started together), printing the build time and ``nvcc -Xptxas -v``'s
+   registers, shared memory and spills of the redesigned kernels;
 2. holds each kernel against its plain PyTorch version on the card, in
    float64 and float32: the vector kernels at the main path's shape and at
    a ragged one, the block kernels at the block path's (r = 8) and at
@@ -34,11 +35,12 @@ CUDA card with sm_90a). It
    counts (``scale=1.0``) over 4 stacked shards in float64:
 
    * ``boneS10`` with ``--format auto``, which must resolve BCSR: the two
-     BCSR kernels held against their plain versions at its shape (r = 1
-     and r = 8) and at ragged ones, and timed, with cuSPARSE's BSR product
-     as the library yardstick; ``op="spmv"`` against scipy; hs through
-     ``api.solve`` (``b = ones = A @ 1``: one iteration on both legs); hs
-     with a seeded right-hand side through the session's solver handle;
+     BCSR kernels held against their plain versions at its shape (r = 1,
+     4 and 8) and at ragged ones, and timed, with cuSPARSE's BSR product
+     as the library yardstick (the kernel-to-cuSPARSE ratio printed);
+     ``op="spmv"`` against scipy; hs through ``api.solve`` (``b = ones =
+     A @ 1``: one iteration on both legs); hs with a seeded right-hand
+     side through the session's solver handle;
      block-HS with ``nrhs=8`` — each with its launch counts;
    * ``G3_circuit`` with ``--format auto``, which must resolve HYB: hs
      with a seeded right-hand side, and two SpMVs that must give the same
@@ -61,10 +63,13 @@ CUDA card with sm_90a). It
      and float32, 7pt, anisotropic 7pt (1, 2.5, 7) and 27pt, at the path's
      shape (the global 256³ grid for ``stencil_spmv`` and the sweep) and at
      ragged ones ((4, 5, 33, 45); nz = 1 for the slab kernel, nz = 2 for
-     the boundary kernel); the boundary planes must be bitwise the slab
-     kernel's, and ``stencil_spmv`` on the global grid bitwise the 4-slab
+     the boundary kernel; (1, 1, 7, 9) and (2, 67, 40, 70)); the halo
+     kernel bitwise its plain version, the boundary planes bitwise the
+     halo kernel's, and ``stencil_spmv`` on the stacked grid bitwise the
      halo kernel with real halos; each kernel, its plain version and
-     ``conv3d`` (the SpMVs' library yardstick) timed;
+     ``conv3d`` (the SpMVs' library yardstick) timed, the halo kernel
+     beside ``stencil_spmv`` (the one-thread-per-point design) in the same
+     run, and the boundary kernel's device time from a profiler window;
    * ``make_matvec`` against scipy's ``A @ x`` (poisson7 at side 256, and
      poisson27 at side 64), overlap on and off, ones and a seeded x;
    * ``make_stencil_solver_fn`` with hs, fcg, pipecg and s-step (s = 2) on
@@ -156,6 +161,40 @@ def launch_counts() -> dict:
     for m in kernel_modules():
         out.update(m.launches())
     return out
+
+
+# the float64 instantiations of the redesigned kernels that the paths run
+PTXAS_KERNELS = ("halo_march_kernel<double", "bcsr_rhs_kernel<double, (int)4, (int)4>")
+
+
+def ptxas_report(log: str, names=PTXAS_KERNELS) -> list[str]:
+    """``nvcc -Xptxas -v``'s registers, shared memory and spills of every
+    entry whose name (demangled by the toolkit's ``cu++filt``, else bare)
+    holds one of ``names``, one line each."""
+    import re
+    import shutil
+
+    entries, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = {"name": m.group(1), "spill": ""}
+            entries.append(cur)
+        elif cur is not None and "spill stores" in line:
+            cur["spill"] = line.strip()
+        elif cur is not None and "Used" in line:
+            cur["used"] = line.split(":", 1)[1].strip()
+    filt = shutil.which("cu++filt") or "/usr/local/cuda/bin/cu++filt"
+    if entries and os.path.exists(filt):
+        out = subprocess.run([filt], input="\n".join(e["name"] for e in entries),
+                             capture_output=True, text=True, timeout=60).stdout.splitlines()
+        if len(out) == len(entries):
+            for e, d in zip(entries, out):
+                e["name"] = d.split("(const")[0].replace("(anonymous namespace)::", "")
+    else:
+        names = tuple(n.split("<")[0] for n in names)
+    return [f"{e['name']}: {e.get('used', '?')}; {e['spill']}" for e in entries
+            if any(n in e["name"] for n in names)]
 
 
 def time_ms(fn, rounds: int = 7, calls: int = 20) -> float:
@@ -458,6 +497,30 @@ def sstep_kernel_phase(dev):
 STENCILS = (("7pt", (1.0, 1.0, 1.0)), ("7pt", ANISO), ("27pt", (1.0, 1.0, 1.0)))
 
 
+def profiled_ms(fn, kernel: str, calls: int = 50) -> float:
+    """Device time per call of the kernels whose name holds ``kernel``, from
+    a ``torch.profiler`` window of ``calls`` calls (after a warm-up), each
+    after a 64 MB write that flushes the 50 MB L2: the inputs come from HBM,
+    as on the solver's path."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and kernel in e.key]
+    check(sum(e.count for e in evs) == calls,
+          f"profiler saw {sum(e.count for e in evs)} {kernel} launches, not {calls}")
+    return sum(e.self_device_time_total for e in evs) / 1e3 / calls
+
+
 def halo_planes(x3):
     """The stacked halo exchange of ``(S, nz, ny, nx)`` slabs: ``prev[s] =
     x3[s - 1, -1]``, ``next[s] = x3[s + 1, 0]``, zero planes at the ends."""
@@ -507,13 +570,17 @@ def stencil_kernel_phase(dev):
     and float32, for 7pt, anisotropic 7pt ``ANISO`` and 27pt: at the path's
     shape (S = 4 slabs of side/4 planes, the global side³ grid for the
     single-grid kernels) and at ragged ones ((S, 5, 33, 45); nz = 1 for
-    the slab kernel, nz = 2 for the boundary kernel). Elementwise
-    ``|k - p| <= 2 eps (|A| |x|)`` (the same operations in the same order:
-    expected bitwise; whether it is, is printed); the boundary planes must
-    equal the slab kernel's bitwise, and ``stencil_spmv`` on the global
-    grid the 4-slab halo kernel with real halos. Timings at the path's
-    shape, 7pt, float64 (27pt printed beside), with ``conv3d`` as the
-    library yardstick of the two SpMVs."""
+    the slab kernel, nz = 2 for the boundary kernel; (1, 1, 7, 9) and (2,
+    67, 40, 70), ragged against the halo kernel's tile and z-runs).
+    Elementwise ``|k - p| <= 2 eps (|A| |x|)`` (the same operations in the
+    same order: expected bitwise; whether it is, is printed), and the halo
+    kernel bitwise; the boundary planes must equal the halo kernel's
+    bitwise, and ``stencil_spmv`` on the stacked grid the halo kernel on
+    its slabs with real halos. Timings at the path's shape, 7pt, float64
+    (27pt printed beside), with ``conv3d`` as the library yardstick of the
+    two SpMVs; the halo kernel beside ``stencil_spmv`` (the previous
+    design) in the same run, back to back and with L2 flushed before each
+    call; the boundary kernel's device time from a profiler window."""
     import torch
 
     from repro_torch.kernels import jacobi_stencil as js
@@ -524,7 +591,8 @@ def stencil_kernel_phase(dev):
     g = torch.Generator(device=dev).manual_seed(6)
     nzl = SIDE // SHARDS
     shapes = (("path", (SHARDS, nzl, SIDE, SIDE)), ("ragged", (SHARDS, 5, 33, 45)),
-              ("nz=1", (SHARDS, 1, 33, 45)), ("nz=2", (SHARDS, 2, 33, 45)))
+              ("nz=1", (SHARDS, 1, 33, 45)), ("nz=2", (SHARDS, 2, 33, 45)),
+              ("S=1", (1, 1, 7, 9)), ("runs", (2, 67, 40, 70)))
     for dt in (torch.float64, torch.float32):
         tname = str(dt).split(".")[1]
         eps = torch.finfo(dt).eps
@@ -576,15 +644,17 @@ def stencil_kernel_phase(dev):
                           f"{torch.equal(k, p)}", flush=True)
                     check(e <= 1.0, f"{name} ({label}, {tag}, {tname}) disagrees with its "
                                     "plain version")
-                if label == "path":
-                    # one grid, or 4 slabs with real halos: the same bits
-                    hp, hn = halo_planes(x3)
-                    yr = st.stencil_spmv_halo(x3, hp, hn, bz=st.pick_bz(nz), **kw)
-                    torch.cuda.synchronize()
-                    same = torch.equal(yr.reshape(xg.shape), ys)
-                    print(f"bitwise stencil_spmv ({S * nz}, {ny}, {nx}) {tname} {tag}: equal to "
-                          f"stencil_spmv_halo on {S} slabs with real halos: {same}", flush=True)
-                    check(same, "stencil_spmv differs from the halo kernel with real halos")
+                # the z-march repeats the plain version's operations
+                check(torch.equal(yh, ph), f"stencil_spmv_halo ({label}, {tag}, {tname}) is "
+                                           "not bitwise its plain version")
+                # one grid, or its slabs with real halos: the same bits
+                hp, hn = halo_planes(x3)
+                yr = st.stencil_spmv_halo(x3, hp, hn, bz=st.pick_bz(nz), **kw)
+                torch.cuda.synchronize()
+                same = torch.equal(yr.reshape(xg.shape), ys)
+                print(f"bitwise stencil_spmv ({S * nz}, {ny}, {nx}) {tname} {tag}: equal to "
+                      f"stencil_spmv_halo on {S} slabs with real halos: {same}", flush=True)
+                check(same, "stencil_spmv differs from the halo kernel with real halos")
                 if label != "path" or dt != torch.float64 or aniso != (1.0, 1.0, 1.0):
                     continue
                 by = x3.element_size()
@@ -617,11 +687,32 @@ def stencil_kernel_phase(dev):
                                                                           omega=0.8, **kw),
                                              None),
                 }
+                timed = {}
                 for name, (work, kern, plain, lib) in cases.items():
-                    row = time_row(name, work, kern, plain, lib, errs[name], tname,
-                                   tag=f"{stencil} ", lib_calls=3)
+                    timed[name] = time_row(name, work, kern, plain, lib, errs[name], tname,
+                                           tag=f"{stencil} ", lib_calls=3)
                     if stencil == "7pt":
-                        rows[name] = row
+                        rows[name] = timed[name]
+                # the z-march beside the one-thread-per-point design, which
+                # stencil_spmv keeps, on the same bytes less two halo planes
+                h, o = timed["stencil_spmv_halo"]["ms"], timed["stencil_spmv"]["ms"]
+                print(f"same-run {stencil} f64: stencil_spmv_halo (z-march) {h:.4f} ms, "
+                      f"stencil_spmv (one thread per point) {o:.4f} ms on the global grid: "
+                      f"ratio {h / o:.3f}", flush=True)
+                # the same pair as the solver finds them: L2 cold before each call
+                hf = profiled_ms(lambda: st.stencil_spmv_halo(x3, prev, nxt, **kb),
+                                 "halo_march_kernel", calls=20)
+                of = profiled_ms(lambda: st.stencil_spmv(xg, **kb), "slab_kernel", calls=20)
+                print(f"same-run {stencil} f64, L2 flushed before each call (device time): "
+                      f"stencil_spmv_halo {hf:.4f} ms, stencil_spmv {of:.4f} ms: ratio "
+                      f"{hf / of:.3f}", flush=True)
+                # the boundary kernel's device time, which back-to-back event
+                # timing cannot see behind the host's launch cadence
+                dev_ms = profiled_ms(lambda: st.stencil_spmv_boundary(x3, prev, nxt, **kw),
+                                     "boundary_kernel")
+                bb = timed["stencil_spmv_boundary"]["bound_ms"]
+                print(f"profiled stencil_spmv_boundary {stencil} f64: device {dev_ms:.4f} ms per "
+                      f"call, bound {bb:.4f} ms ({100 * bb / dev_ms:.0f}%)", flush=True)
                 del lib_h, lib_s, cases
             del x3, prev, nxt, xg, b, dinv
             torch.cuda.empty_cache()
@@ -852,9 +943,10 @@ def bsr_library(blocks, bcol, n_brows, bpr, x):
 def bcsr_kernel_phase(dev, mat):
     """The BCSR kernels against their plain versions, in float64 and
     float32: at the path's shape (the tiles of ``mat``, the boneS10 BCSR
-    interior; r = 1 and r = NRHS) and at ragged ones (random tiles with R
+    interior; r = 1, 4 and NRHS) and at ragged ones (random tiles with R
     not a multiple of the tile, r = 1 and 3); timings at the path's shape
-    in float64."""
+    in float64, each beside cuSPARSE's in the same run (the r = NRHS row
+    goes into the JSON line, r = 4 is printed)."""
     import torch
 
     from repro_torch.kernels import ref
@@ -866,7 +958,7 @@ def bcsr_kernel_phase(dev, mat):
     g = torch.Generator(device=dev).manual_seed(2)
     for dt in (torch.float64, torch.float32):
         tname = str(dt).split(".")[1]
-        cases = [("path", it.blocks.to(dt), it.bcol, it.n_brows, it.bpr, R, (1, NRHS))]
+        cases = [("path", it.blocks.to(dt), it.bcol, it.n_brows, it.bpr, R, (1, 4, NRHS))]
         for seed, (b, bpr, Rr) in enumerate(((4, 13, 1001), (3, 5, 997))):
             blocks, bcol, NB = random_bcsr(dev, b, bpr, Rr, dt, seed)
             cases.append(("ragged", blocks, bcol, NB, bpr, Rr, (1, 3)))
@@ -900,13 +992,17 @@ def bcsr_kernel_phase(dev, mat):
                 nbytes = ntiles * (br * br * b_ + 4) + S * Rc * nr * b_ + S * NB * br * nr * b_
                 flops = 2 * ntiles * br * br * nr
                 lib, note = bsr_library(blocks, bcol, NB, bpr, x)
-                print(f"library {name}: {note}", flush=True)
-                rows[name] = time_row(
+                print(f"library {name} r={r}: {note}", flush=True)
+                row = time_row(
                     name, (nbytes, flops),
                     lambda: kern(blocks, bcol, x, n_brows=NB, bpr=bpr),
                     lambda: plain(blocks, bcol, x, NB, bpr), lib,
-                    float((k - p).abs().max()), tname)
-                rows[name]["library_note"] = note
+                    float((k - p).abs().max()), tname, tag=f"r={r} ")
+                if row["library_ms"] is not None:
+                    print(f"same-run {name} r={r}: kernel / library = "
+                          f"{row['ms'] / row['library_ms']:.3f}", flush=True)
+                if r in (1, NRHS):  # r = 4 is printed only
+                    rows[name] = row
                 del lib
             del blocks, bcol
         torch.cuda.empty_cache()
@@ -1275,9 +1371,11 @@ def main():
     print(f"kernel build: {time.perf_counter() - t0:.2f} s "
           f"({', '.join(built) or 'cached'})", flush=True)
     for name, (_, log) in built.items():
-        for line in log.splitlines():
-            if "Used" in line:
-                print(f"  {name}: {line.strip()}")
+        used = [line for line in log.splitlines() if "Used" in line]
+        regs = sorted(int(line.split("Used")[1].split()[0]) for line in used) or [0]
+        print(f"  {name}: {len(used)} kernels, {regs[0]}-{regs[-1]} registers", flush=True)
+        for line in ptxas_report(log):
+            print(f"  ptxas {line}", flush=True)
 
     rows = kernel_phase(dev)
     torch.cuda.empty_cache()

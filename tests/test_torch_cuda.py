@@ -15,6 +15,7 @@ the magnitudes each entry adds up (the two sides sum in different orders).
 import pytest
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels import fused_reductions as fr
 from repro_torch.kernels import ref
 from repro_torch.kernels import spmv_bcsr as sb
@@ -134,16 +135,26 @@ def test_cuda_block_update2_matches_plain(cuda_device, r):
 BCSR_TOL = {torch.float64: 1e-13, torch.float32: 1e-5}
 
 
-def _card_bcsr(dev, b, bpr, dtype, S=4, R=50_003, seed=0):
-    """A stacked uniform-layout BCSR operand on the card with a ragged R
-    (not a multiple of b) and padding tiles (zero, block column 0) in
-    every block-row past its first tile."""
-    g = torch.Generator(device=dev).manual_seed(seed + 31 * b + bpr)
-    NB = -(-R // b)
-    n_bcols = NB
-    blocks = torch.randn(S, NB * bpr, b, b, dtype=dtype, device=dev, generator=g)
-    bcol = torch.randint(0, n_bcols, (S, NB * bpr), device=dev, generator=g,
-                         dtype=torch.int32)
+def _card_bcsr(dev, b, bpr, dtype, S=4, R=50_003, seed=0, layout="scattered"):
+    """A stacked uniform-layout BCSR operand on the card with (br, bc) tiles
+    (``b`` an int for square ones), a ragged R (not a multiple of br or bc)
+    and padding tiles (zero, block column 0) in every block-row past its
+    first tile. ``scattered``: block columns drawn anywhere; ``banded``: the
+    ascending block columns around the block diagonal, as ``pack_bcsr``
+    lays out a banded matrix (the SpMM kernel's shared-memory x window)."""
+    br, bc = (b, b) if isinstance(b, int) else b
+    g = torch.Generator(device=dev).manual_seed(seed + 31 * br + 7 * bc + bpr)
+    NB = -(-R // br)
+    n_bcols = -(-R // bc)
+    blocks = torch.randn(S, NB * bpr, br, bc, dtype=dtype, device=dev, generator=g)
+    if layout == "banded":
+        d = torch.arange(NB, device=dev) * br // bc
+        start = (d - bpr // 2).clamp(min=0, max=n_bcols - bpr)
+        cols = start[:, None] + torch.arange(bpr, device=dev)
+        bcol = cols.reshape(1, NB * bpr).repeat(S, 1).to(torch.int32)
+    else:
+        bcol = torch.randint(0, n_bcols, (S, NB * bpr), device=dev, generator=g,
+                             dtype=torch.int32)
     used = torch.randint(1, bpr + 1, (S, NB, 1), device=dev, generator=g)
     pad = (torch.arange(bpr, device=dev) >= used).reshape(S, NB * bpr)
     blocks[pad] = 0
@@ -172,21 +183,26 @@ def test_cuda_bcsr_spmv_matches_plain(cuda_device, bpr, b, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("r", [1, 3, 8])
-@pytest.mark.parametrize("b", [2, 4, 16])
+@pytest.mark.parametrize("r", [1, 3, 8, 2, 5, 16])
+@pytest.mark.parametrize("b", [2, 4, 16, 3, 8, (3, 5)])
 @pytest.mark.parametrize("bpr", [1, 13])
 def test_cuda_bcsr_spmm_matches_plain(cuda_device, bpr, b, r, dtype):
-    blocks, bcol, NB, R = _card_bcsr(cuda_device, b, bpr, dtype, R=20_011)
-    x = torch.randn(4, R, r, dtype=dtype, device=cuda_device)
-    n0 = sb.bcsr_spmm.launches
-    y = sb.bcsr_spmm(blocks, bcol, x, n_brows=NB, bpr=bpr)
-    torch.cuda.synchronize()
-    assert sb.bcsr_spmm.launches == n0 + 1
-    assert y.shape == (4, R, r)
-    p = ref.bcsr_spmm_ref(blocks, bcol, x, NB, bpr)
-    scale = ref.bcsr_spmm_ref(blocks.abs(), bcol, x.abs(), NB, bpr)
-    assert _block_err(y, p, scale) <= BCSR_TOL[dtype]
-    assert torch.equal(y, sb.bcsr_spmm(blocks, bcol, x, n_brows=NB, bpr=bpr))
+    """Each tile shape (square at compile time, 3 x 5 at run time) and r
+    (1: the SpMV's kernel; 2 up: several right-hand sides per thread), on a
+    scattered operand (x from global memory) and a banded one (the
+    shared-memory x window), ragged R."""
+    for layout in ("scattered", "banded"):
+        blocks, bcol, NB, R = _card_bcsr(cuda_device, b, bpr, dtype, R=20_011, layout=layout)
+        x = torch.randn(4, R, r, dtype=dtype, device=cuda_device)
+        n0 = sb.bcsr_spmm.launches
+        y = sb.bcsr_spmm(blocks, bcol, x, n_brows=NB, bpr=bpr)
+        torch.cuda.synchronize()
+        assert sb.bcsr_spmm.launches == n0 + 1
+        assert y.shape == (4, R, r)
+        p = ref.bcsr_spmm_ref(blocks, bcol, x, NB, bpr)
+        scale = ref.bcsr_spmm_ref(blocks.abs(), bcol, x.abs(), NB, bpr)
+        assert _block_err(y, p, scale) <= BCSR_TOL[dtype], layout
+        assert torch.equal(y, sb.bcsr_spmm(blocks, bcol, x, n_brows=NB, bpr=bpr)), layout
 
 
 @pytest.mark.cuda
@@ -321,7 +337,9 @@ def test_cuda_sstep_never_takes_the_plain_version(cuda_device, monkeypatch):
 
 
 STENCIL_CASES = [("7pt", (1.0, 1.0, 1.0)), ("7pt", (1.0, 2.5, 7.0)), ("27pt", (1.0, 1.0, 1.0))]
-STENCIL_SHAPES = [(4, 16, 64, 64), (3, 5, 33, 45), (2, 1, 17, 23)]  # (S, nz, ny, nx)
+# (S, nz, ny, nx); the last two ragged against the halo kernel's 128 x 8
+# tile and its z-runs (nz = 67 splits into runs that cross the slab edge)
+STENCIL_SHAPES = [(4, 16, 64, 64), (3, 5, 33, 45), (2, 1, 17, 23), (1, 1, 7, 9), (2, 67, 40, 70)]
 
 
 def _card_stencil(dev, shape, dtype, seed=0):
@@ -366,7 +384,23 @@ def test_cuda_stencil_kernels_match_plain(cuda_device, shape, stencil, aniso, dt
     assert st.launches()["stencil_spmv"] == n0["stencil_spmv"] + 1
     sh = 2 * d * x.abs() - ref.stencil_halo_ref(x.abs(), prev.abs(), nxt.abs(), **kw)
     ss = 2 * d * xg.abs() - ref.stencil_spmv_ref(xg.abs(), **kw)
-    assert _stencil_err(yh, ref.stencil_halo_ref(x, prev, nxt, **kw), sh, dtype) <= 1
+    ph = ref.stencil_halo_ref(x, prev, nxt, **kw)
+    assert _stencil_err(yh, ph, sh, dtype) <= 1
+    # the z-march repeats the plain version's operations: the same bits,
+    # with real halo planes, with null ones (zero planes, through the C
+    # entry), and against the single-grid kernel on the stacked slabs
+    assert torch.equal(yh, ph)
+    yn = torch.empty_like(x)
+    lib = st._lib()
+    _build.check(getattr(lib, f"st_halo_{st._SUFFIX[dtype]}")(
+        x.data_ptr(), None, None, yn.data_ptr(), S, nz, shape[2], shape[3],
+        *st.coef_args(stencil, aniso, dtype), st.stream(x)), "st_halo")
+    z = torch.zeros_like(prev)
+    assert torch.equal(yn, ref.stencil_halo_ref(x, z, z, **kw))
+    hp = torch.cat([z[:1], x[:-1, -1]])
+    hn = torch.cat([x[1:, 0], z[:1]])
+    yr = st.stencil_spmv_halo(x, hp, hn, bz=1, **kw)
+    assert torch.equal(yr.view(xg.shape), ys)
     assert _stencil_err(ys, ref.stencil_spmv_ref(xg, **kw), ss, dtype) <= 1
     pj = ref.jacobi_sweep_ref(xg, bg, dg, omega=0.8, **kw)
     assert _stencil_err(yj, pj, xg.abs() + 0.8 * dg * (bg.abs() + ss), dtype) <= 1
@@ -382,14 +416,15 @@ def test_cuda_stencil_kernels_match_plain(cuda_device, shape, stencil, aniso, dt
 @pytest.mark.parametrize("stencil,aniso", STENCIL_CASES)
 def test_cuda_stencil_boundary_planes_bitwise_equal_slab_kernel(cuda_device, stencil, aniso,
                                                                 dtype):
-    """The boundary kernel's planes (and its ``out=`` form) equal the slab
-    kernel's planes 0 and nz-1 bit for bit — both call one point function
-    written with the round-to-nearest intrinsics — and one grid equals 4
-    slabs with real halos."""
+    """The boundary kernel's planes (and its ``out=`` form) equal the halo
+    kernel's planes 0 and nz-1 bit for bit — the z-march repeats the
+    boundary kernel's point function, operation for operation, with the
+    round-to-nearest intrinsics — and one grid equals its slabs with real
+    halos."""
     from repro_torch.kernels import spmv_stencil as st
 
     kw = dict(stencil=stencil, aniso=aniso)
-    for shape in ((4, 16, 64, 64), (3, 2, 33, 45), (2, 5, 17, 23)):
+    for shape in ((4, 16, 64, 64), (3, 2, 33, 45), (2, 5, 17, 23), (2, 67, 40, 70)):
         x, prev, nxt, _, _ = _card_stencil(cuda_device, shape, dtype, seed=1)
         nz = shape[1]
         yh = st.stencil_spmv_halo(x, prev, nxt, bz=1, **kw)
@@ -400,12 +435,14 @@ def test_cuda_stencil_boundary_planes_bitwise_equal_slab_kernel(cuda_device, ste
         assert torch.equal(yb[:, 0], yh[:, 0]) and torch.equal(yb[:, 1], yh[:, -1])
         assert torch.equal(out[:, [0, nz - 1]], yh[:, [0, nz - 1]])
         assert not out[:, 1:-1].any()
-    x = _card_stencil(cuda_device, (4, 8, 33, 45), dtype, seed=2)[0]
-    z = torch.zeros_like(x[:1, 0])
-    prev = torch.cat([z, x[:-1, -1]])
-    nxt = torch.cat([x[1:, 0], z])
-    y4 = st.stencil_spmv_halo(x, prev, nxt, bz=1, **kw)
-    assert torch.equal(y4.view(32, 33, 45), st.stencil_spmv(x.view(32, 33, 45), bz=1, **kw))
+    for shape in ((4, 8, 33, 45), (3, 23, 17, 70)):
+        x = _card_stencil(cuda_device, shape, dtype, seed=2)[0]
+        z = torch.zeros_like(x[:1, 0])
+        prev = torch.cat([z, x[:-1, -1]])
+        nxt = torch.cat([x[1:, 0], z])
+        y4 = st.stencil_spmv_halo(x, prev, nxt, bz=1, **kw)
+        grid = (shape[0] * shape[1],) + shape[2:]
+        assert torch.equal(y4.view(grid), st.stencil_spmv(x.view(grid), bz=1, **kw))
 
 
 @pytest.mark.cuda
