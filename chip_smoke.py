@@ -18,7 +18,9 @@ CUDA card with sm_90a). It
    where one PyTorch call computes the same function, that call; the bound
    is the larger of the bytes the function must move over the card's
    memory rate and its flops over the card's peak rate (NVIDIA's data
-   sheet), the least time the card could take;
+   sheet), the least time the card could take; ``fused_axpy`` and
+   ``torch.addcmul`` also in 12 alternating pairs of L2-flushed device
+   times (the median ratio and its spread printed);
 4. drives the main path — ``repro_torch.api.solve`` on poisson7 at side 256
    (16.8 M unknowns) over 4 stacked shards in float64, both legs — checks
    the relative residual, an independent scipy residual of the returned
@@ -63,13 +65,15 @@ CUDA card with sm_90a). It
      and float32, 7pt, anisotropic 7pt (1, 2.5, 7) and 27pt, at the path's
      shape (the global 256³ grid for ``stencil_spmv`` and the sweep) and at
      ragged ones ((4, 5, 33, 45); nz = 1 for the slab kernel, nz = 2 for
-     the boundary kernel; (1, 1, 7, 9) and (2, 67, 40, 70)); the halo
-     kernel bitwise its plain version, the boundary planes bitwise the
-     halo kernel's, and ``stencil_spmv`` on the stacked grid bitwise the
-     halo kernel with real halos; each kernel, its plain version and
-     ``conv3d`` (the SpMVs' library yardstick) timed, the halo kernel
-     beside ``stencil_spmv`` (the one-thread-per-point design) in the same
-     run, and the boundary kernel's device time from a profiler window;
+     the boundary kernel; (1, 1, 7, 9), (2, 67, 40, 70) and (2, 3, 130,
+     129)); each kernel bitwise its plain version, the boundary planes
+     bitwise the halo kernel's, and ``stencil_spmv`` on the stacked grid
+     bitwise the halo kernel with real halos; each kernel, its plain
+     version and ``conv3d`` (the SpMVs' library yardstick) timed, and the
+     device times of the boundary kernel and ``stencil_spmv`` at 7pt and
+     27pt with L2 flushed, from profiler windows (a window whose launch
+     count is off is taken again, at most twice; each phase prints how many
+     windows it took and retried);
    * ``make_matvec`` against scipy's ``A @ x`` (poisson7 at side 256, and
      poisson27 at side 64), overlap on and off, ones and a seeded x;
    * ``make_stencil_solver_fn`` with hs, fcg, pipecg and s-step (s = 2) on
@@ -80,7 +84,7 @@ CUDA card with sm_90a). It
      the plain ``stencil27_ref`` on the card;
    * ten fused Jacobi sweeps (``ops.jacobi_stencil_sweep``) on the global
      grid with the residual from ``ops.stencil_spmv``: monotone, each sweep
-     against the plain version;
+     bitwise the plain version;
 10. profiles 20 iterations of hs, fcg, pipecg, block-HS and s-step (s = 2)
    with ``torch.profiler`` — and hs on BCSR (poisson7, boneS10), block-HS
    on BCSR (boneS10), hs on HYB (G3_circuit) and matrix-free hs (poisson7):
@@ -164,7 +168,8 @@ def launch_counts() -> dict:
 
 
 # the float64 instantiations of the redesigned kernels that the paths run
-PTXAS_KERNELS = ("halo_march_kernel<double", "bcsr_rhs_kernel<double, (int)4, (int)4>")
+PTXAS_KERNELS = ("halo_march_kernel<double", "boundary_tile_kernel<double",
+                 "bcsr_rhs_kernel<double, (int)4, (int)4>")
 
 
 def ptxas_report(log: str, names=PTXAS_KERNELS) -> list[str]:
@@ -313,8 +318,32 @@ def kernel_phase(dev):
             for name, (kern, plain, lib) in calls.items():
                 rows[name] = time_row(name, work[name], kern, plain, lib, abs_err[name],
                                       tname)
+            axpy_vs_addcmul(*calls["fused_axpy"][::2])
             del p, w, x, r
     return rows
+
+
+def axpy_vs_addcmul(kern, lib, pairs: int = 12, calls: int = 10):
+    """``fused_axpy`` against ``torch.addcmul`` on the same inputs, in turns
+    (the kernel first in even pairs, the library call first in odd ones):
+    each side's device time per call with L2 flushed before every call
+    (``profiled_ms``); prints the kernel-to-library ratio's median, quartiles
+    and range over the pairs."""
+    tk, tl = [], []
+    for i in range(pairs):
+        for side in ((0, 1) if i % 2 == 0 else (1, 0)):
+            if side == 0:
+                tk.append(profiled_ms(kern, "axpy_kernel", calls))
+            else:
+                tl.append(profiled_ms(lib, None, calls))
+    ratios = [a / b for a, b in zip(tk, tl)]
+    q = statistics.quantiles(ratios, n=4)
+    print(f"paired fused_axpy / torch.addcmul, float64 S={SHARDS} R={R_MAIN}, L2 flushed, "
+          f"{pairs} pairs of {calls} calls: median ratio {statistics.median(ratios):.4f}, "
+          f"quartiles {q[0]:.4f}-{q[2]:.4f}, range {min(ratios):.4f}-{max(ratios):.4f}; "
+          f"medians {statistics.median(tk):.4f} ms (kernel), {statistics.median(tl):.4f} ms "
+          f"(addcmul)", flush=True)
+    profiler_tally("the fused_axpy / addcmul pairs")
 
 
 def time_row(name, work, kern, plain, lib, abs_err, tname, tag="", lib_calls=20):
@@ -497,28 +526,57 @@ def sstep_kernel_phase(dev):
 STENCILS = (("7pt", (1.0, 1.0, 1.0)), ("7pt", ANISO), ("27pt", (1.0, 1.0, 1.0)))
 
 
-def profiled_ms(fn, kernel: str, calls: int = 50) -> float:
-    """Device time per call of the kernels whose name holds ``kernel``, from
-    a ``torch.profiler`` window of ``calls`` calls (after a warm-up), each
-    after a 64 MB write that flushes the 50 MB L2: the inputs come from HBM,
-    as on the solver's path."""
+_FLUSH_KEYS: set = set()
+# profiler windows taken and taken again, per phase (profiler_tally)
+_WINDOWS = {"taken": 0, "retried": 0}
+
+
+def profiled_ms(fn, kernel: str | None, calls: int = 50) -> float:
+    """Device time per call of the kernels whose name holds ``kernel`` (None:
+    every kernel ``fn`` launches), from a ``torch.profiler`` window of
+    ``calls`` calls (after a warm-up), each after a 64 MB write that flushes
+    the 50 MB L2: the inputs come from HBM, as on the solver's path."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    if not _FLUSH_KEYS:  # the flush's own kernels, left out where kernel is None
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            flush.zero_()
+            torch.cuda.synchronize()
+        _FLUSH_KEYS.update(e.key for e in prof.key_averages()
+                           if e.device_type == DeviceType.CUDA)
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            flush.zero_()
-            fn()
-        torch.cuda.synchronize()
-    evs = [e for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA and kernel in e.key]
-    check(sum(e.count for e in evs) == calls,
-          f"profiler saw {sum(e.count for e in evs)} {kernel} launches, not {calls}")
-    return sum(e.self_device_time_total for e in evs) / 1e3 / calls
+    # the profiler now and then drops a kernel record (2 of 50 in about one
+    # window of 40 on the H100): such a window is taken again
+    for attempt in range(3):
+        _WINDOWS["taken"] += 1
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and (e.key not in _FLUSH_KEYS if kernel is None else kernel in e.key)]
+        seen = sum(e.count for e in evs)
+        if seen == calls:
+            return sum(e.self_device_time_total for e in evs) / 1e3 / calls
+        _WINDOWS["retried"] += 1
+        print(f"profiler window {attempt + 1}: {seen} {kernel} launches seen, not {calls}",
+              flush=True)
+    check(False, f"profiler saw {seen} {kernel} launches, not {calls}, in 3 windows")
+
+
+def profiler_tally(phase: str):
+    """Print how many profiler windows ``phase`` took and how many of them
+    were taken again for a launch count other than their calls, then reset
+    the tally."""
+    print(f"profiler windows in {phase}: {_WINDOWS['taken']} taken, {_WINDOWS['retried']} "
+          "retried for a wrong launch count", flush=True)
+    _WINDOWS.update(taken=0, retried=0)
 
 
 def halo_planes(x3):
@@ -570,17 +628,17 @@ def stencil_kernel_phase(dev):
     and float32, for 7pt, anisotropic 7pt ``ANISO`` and 27pt: at the path's
     shape (S = 4 slabs of side/4 planes, the global side³ grid for the
     single-grid kernels) and at ragged ones ((S, 5, 33, 45); nz = 1 for
-    the slab kernel, nz = 2 for the boundary kernel; (1, 1, 7, 9) and (2,
-    67, 40, 70), ragged against the halo kernel's tile and z-runs).
-    Elementwise ``|k - p| <= 2 eps (|A| |x|)`` (the same operations in the
-    same order: expected bitwise; whether it is, is printed), and the halo
-    kernel bitwise; the boundary planes must equal the halo kernel's
-    bitwise, and ``stencil_spmv`` on the stacked grid the halo kernel on
-    its slabs with real halos. Timings at the path's shape, 7pt, float64
-    (27pt printed beside), with ``conv3d`` as the library yardstick of the
-    two SpMVs; the halo kernel beside ``stencil_spmv`` (the previous
-    design) in the same run, back to back and with L2 flushed before each
-    call; the boundary kernel's device time from a profiler window."""
+    the slab kernel, nz = 2 for the boundary kernel; (1, 1, 7, 9), (2, 67,
+    40, 70), ragged against the z-march's tile and runs, and (2, 3, 130,
+    129), against the boundary kernel's edge-plane tiles). Each kernel
+    must equal its plain version bit for bit (the same operations in the
+    same order; ``|k - p| <= 2 eps (|A| |x|)`` is printed beside), the
+    boundary planes the halo kernel's, and ``stencil_spmv`` on the stacked
+    grid the halo kernel on its slabs with real halos. Timings at the
+    path's shape, 7pt, float64 (27pt printed beside), with ``conv3d`` as
+    the library yardstick of the two SpMVs; the device times of the
+    boundary kernel and ``stencil_spmv`` with L2 flushed before each call,
+    from profiler windows."""
     import torch
 
     from repro_torch.kernels import jacobi_stencil as js
@@ -592,7 +650,7 @@ def stencil_kernel_phase(dev):
     nzl = SIDE // SHARDS
     shapes = (("path", (SHARDS, nzl, SIDE, SIDE)), ("ragged", (SHARDS, 5, 33, 45)),
               ("nz=1", (SHARDS, 1, 33, 45)), ("nz=2", (SHARDS, 2, 33, 45)),
-              ("S=1", (1, 1, 7, 9)), ("runs", (2, 67, 40, 70)))
+              ("S=1", (1, 1, 7, 9)), ("runs", (2, 67, 40, 70)), ("tiles", (2, 3, 130, 129)))
     for dt in (torch.float64, torch.float32):
         tname = str(dt).split(".")[1]
         eps = torch.finfo(dt).eps
@@ -644,9 +702,9 @@ def stencil_kernel_phase(dev):
                           f"{torch.equal(k, p)}", flush=True)
                     check(e <= 1.0, f"{name} ({label}, {tag}, {tname}) disagrees with its "
                                     "plain version")
-                # the z-march repeats the plain version's operations
-                check(torch.equal(yh, ph), f"stencil_spmv_halo ({label}, {tag}, {tname}) is "
-                                           "not bitwise its plain version")
+                    # every kernel repeats its plain version's operations
+                    check(torch.equal(k, p), f"{name} ({label}, {tag}, {tname}) is not "
+                                             "bitwise its plain version")
                 # one grid, or its slabs with real halos: the same bits
                 hp, hn = halo_planes(x3)
                 yr = st.stencil_spmv_halo(x3, hp, hn, bz=st.pick_bz(nz), **kw)
@@ -693,29 +751,29 @@ def stencil_kernel_phase(dev):
                                            tag=f"{stencil} ", lib_calls=3)
                     if stencil == "7pt":
                         rows[name] = timed[name]
-                # the z-march beside the one-thread-per-point design, which
-                # stencil_spmv keeps, on the same bytes less two halo planes
-                h, o = timed["stencil_spmv_halo"]["ms"], timed["stencil_spmv"]["ms"]
-                print(f"same-run {stencil} f64: stencil_spmv_halo (z-march) {h:.4f} ms, "
-                      f"stencil_spmv (one thread per point) {o:.4f} ms on the global grid: "
-                      f"ratio {h / o:.3f}", flush=True)
-                # the same pair as the solver finds them: L2 cold before each call
-                hf = profiled_ms(lambda: st.stencil_spmv_halo(x3, prev, nxt, **kb),
-                                 "halo_march_kernel", calls=20)
-                of = profiled_ms(lambda: st.stencil_spmv(xg, **kb), "slab_kernel", calls=20)
-                print(f"same-run {stencil} f64, L2 flushed before each call (device time): "
-                      f"stencil_spmv_halo {hf:.4f} ms, stencil_spmv {of:.4f} ms: ratio "
-                      f"{hf / of:.3f}", flush=True)
-                # the boundary kernel's device time, which back-to-back event
-                # timing cannot see behind the host's launch cadence
-                dev_ms = profiled_ms(lambda: st.stencil_spmv_boundary(x3, prev, nxt, **kw),
-                                     "boundary_kernel")
-                bb = timed["stencil_spmv_boundary"]["bound_ms"]
-                print(f"profiled stencil_spmv_boundary {stencil} f64: device {dev_ms:.4f} ms per "
-                      f"call, bound {bb:.4f} ms ({100 * bb / dev_ms:.0f}%)", flush=True)
+                # device times with L2 cold before each call, as the solver
+                # finds its inputs (back-to-back event timing shows the host's
+                # launch cadence for the short boundary kernel)
+                for name, kname, n in (("stencil_spmv_boundary", "boundary_tile_kernel", 50),
+                                       ("stencil_spmv", "halo_march_kernel", 20)):
+                    dev_ms = profiled_ms(cases[name][1], kname, calls=n)
+                    bb = timed[name]["bound_ms"]
+                    print(f"profiled {name} {stencil} f64, L2 flushed: device {dev_ms:.4f} ms "
+                          f"per call, bound {bb:.4f} ms ({100 * bb / dev_ms:.0f}%)", flush=True)
+                if stencil == "7pt":
+                    # a yardstick the port never calls: a plain device copy that
+                    # moves the boundary kernel's bytes, under the same flush
+                    half = torch.empty(4 * S * pl, dtype=dt, device=dev)
+                    dst = torch.empty_like(half)
+                    cp = profiled_ms(lambda: dst.copy_(half), None)
+                    mb = half.numel() * by / 1e6
+                    print(f"profiled copy_ of {mb:.1f} MB ({2 * mb:.1f} MB moved, the boundary "
+                          f"kernel's bytes), L2 flushed: device {cp:.4f} ms", flush=True)
+                    del half, dst
                 del lib_h, lib_s, cases
             del x3, prev, nxt, xg, b, dinv
             torch.cuda.empty_cache()
+    profiler_tally("the stencil kernel phase")
     return rows
 
 
@@ -1310,9 +1368,10 @@ def jacobi_path(dev, launches):
     """Ten fused l1-Jacobi sweeps (``ops.jacobi_stencil_sweep``, omega 1) on
     poisson7's global side³ grid, b = ones, ``dinv`` the inverse l1 row sums
     ``1 / (2 d - A 1)`` (d = 6), the residual after each sweep from
-    ``ops.stencil_spmv``: it must fall monotonically, each sweep must agree
-    with the plain version (``|k - p| <= 2 eps (|x| + |dinv| (|b| +
-    |A||x|))``), and the last residual with the plain ``stencil7_ref``'s.
+    ``ops.stencil_spmv``: it must fall monotonically, each sweep must equal
+    the plain version bit for bit (``|k - p| / (2 eps (|x| + |dinv| (|b| +
+    |A||x|)))`` printed beside), and the last residual the plain
+    ``stencil7_ref``'s.
     Launch counts: 10 sweeps, 11 SpMVs."""
     import torch
 
@@ -1325,21 +1384,22 @@ def jacobi_path(dev, launches):
     eps = torch.finfo(b.dtype).eps
     reset_launches()
     res = [float(torch.linalg.vector_norm(b - ops.stencil_spmv(x)))]
-    worst = 0.0
+    worst, bitwise = 0.0, True
     for _ in range(10):
         xn = ops.jacobi_stencil_sweep(x, b, dinv)
         xp = ref.jacobi_sweep_ref(x, b, dinv)
         scale = x.abs() + dinv * (b + 12.0 * x.abs() - ref.stencil7_ref(x.abs()))
         worst = max(worst, float(((xn - xp).abs() / (2 * eps * scale)).max()))
+        bitwise = bitwise and torch.equal(xn, xp)
         x = xn
         res.append(float(torch.linalg.vector_norm(b - ops.stencil_spmv(x))))
     got = launch_counts()
     plain = float(torch.linalg.vector_norm(b - ref.stencil7_ref(x)))
     print(f"jacobi: residual {res[0]:.6e} -> {res[-1]:.6e} over 10 sweeps "
           f"(plain stencil7_ref: {plain:.6e}); worst sweep |k - p| / (2 eps scale) = "
-          f"{worst:.3e}", flush=True)
+          f"{worst:.3e}; every sweep bitwise the plain version: {bitwise}", flush=True)
     check(all(r1 < r0 for r0, r1 in zip(res, res[1:])), f"jacobi residuals not falling: {res}")
-    check(worst <= 1.0, "jacobi_stencil_sweep disagrees with its plain version")
+    check(bitwise, "jacobi_stencil_sweep is not bitwise its plain version")
     check(abs(plain - res[-1]) <= 1e-12 * res[-1], "jacobi residual disagrees with the plain one")
     want = {"jacobi_stencil_sweep": ("10", 10), "stencil_spmv": ("1 + 10", 11)}
     for name, n in got.items():

@@ -3,8 +3,8 @@
 Port of ``repro.kernels.jacobi_stencil``. One smoothing sweep is
 ``x <- x + omega * dinv * (b - A x)``; composed from separate ops it streams
 x twice plus b and dinv and writes ``A x`` and ``x_new``. The kernel
-(``st_jacobi_*`` in ``csrc/spmv_stencil.cu``, sharing the stencil point
-function of the SpMV kernels) does the whole sweep in one pass: it reads x,
+(``st_jacobi_*`` in ``csrc/spmv_stencil.cu``, forming ``A x`` by the SpMV
+kernels' operations in their order) does the whole sweep in one pass: it reads x,
 b and dinv once and writes ``x_new``. On a CPU tensor the wrapper runs the
 plain version from ``kernels/ref.py`` — the only reason it ever does so;
 it counts its launches in ``jacobi_stencil_sweep.launches``.

@@ -2,10 +2,13 @@
 
 Port of ``repro.kernels.spmv_stencil``. The kernels live in
 ``csrc/spmv_stencil.cu`` (CUDA C++ for ``sm_90a``), built by
-``kernels/_build.py`` and called through ctypes; all four (these three and
-``kernels/jacobi_stencil.py``'s sweep) compute their points with one shared
-device function. The operator is the 7-point (``aniso = (ax, ay, az)``) or
-27-point Poisson stencil with homogeneous Dirichlet x/y edges:
+``kernels/_build.py`` and called through ctypes. :func:`stencil_spmv` and
+:func:`stencil_spmv_halo` run one z-marching kernel, :func:`stencil_spmv_boundary`
+a kernel of staged edge-plane tiles, and ``kernels/jacobi_stencil.py``'s
+sweep a kernel of one thread per point; all four form each output by the
+same rounded operations in the same order, so they agree bit for bit. The
+operator is the 7-point (``aniso = (ax, ay, az)``) or 27-point Poisson
+stencil with homogeneous Dirichlet x/y edges:
 
 * :func:`stencil_spmv` — one ``(nz, ny, nx)`` grid with zero z-edges (or
   ``(S, nz, ny, nx)`` stacked grids, each its own);

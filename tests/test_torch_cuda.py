@@ -337,9 +337,15 @@ def test_cuda_sstep_never_takes_the_plain_version(cuda_device, monkeypatch):
 
 
 STENCIL_CASES = [("7pt", (1.0, 1.0, 1.0)), ("7pt", (1.0, 2.5, 7.0)), ("27pt", (1.0, 1.0, 1.0))]
-# (S, nz, ny, nx); the last two ragged against the halo kernel's 128 x 8
-# tile and its z-runs (nz = 67 splits into runs that cross the slab edge)
-STENCIL_SHAPES = [(4, 16, 64, 64), (3, 5, 33, 45), (2, 1, 17, 23), (1, 1, 7, 9), (2, 67, 40, 70)]
+# (S, nz, ny, nx); (2, 67, 40, 70) ragged against the z-march's 128 x 8
+# tile and its z-runs (nz = 67 splits into runs that cross the slab edge),
+# the next three against the boundary kernel's 128 x 8 edge-plane tiles of
+# 4 rows per thread: ny = 7, 33 and 130 leave a last tile of 7, 1 and 2
+# rows, which ends a thread's rows part way (nz = 2: both edge planes read
+# planes 0 and 1; S = 1); (8, 2, 517, 300) has more tiles than one wave
+# holds, so each block takes several edge planes in turn
+STENCIL_SHAPES = [(4, 16, 64, 64), (3, 5, 33, 45), (2, 1, 17, 23), (1, 1, 7, 9), (2, 67, 40, 70),
+                  (1, 2, 7, 9), (3, 2, 33, 45), (2, 3, 130, 129), (8, 2, 517, 300)]
 
 
 def _card_stencil(dev, shape, dtype, seed=0):
@@ -383,7 +389,6 @@ def test_cuda_stencil_kernels_match_plain(cuda_device, shape, stencil, aniso, dt
     assert st.launches()["stencil_spmv_halo"] == n0["stencil_spmv_halo"] + 1
     assert st.launches()["stencil_spmv"] == n0["stencil_spmv"] + 1
     sh = 2 * d * x.abs() - ref.stencil_halo_ref(x.abs(), prev.abs(), nxt.abs(), **kw)
-    ss = 2 * d * xg.abs() - ref.stencil_spmv_ref(xg.abs(), **kw)
     ph = ref.stencil_halo_ref(x, prev, nxt, **kw)
     assert _stencil_err(yh, ph, sh, dtype) <= 1
     # the z-march repeats the plain version's operations: the same bits,
@@ -401,14 +406,30 @@ def test_cuda_stencil_kernels_match_plain(cuda_device, shape, stencil, aniso, dt
     hn = torch.cat([x[1:, 0], z[:1]])
     yr = st.stencil_spmv_halo(x, hp, hn, bz=1, **kw)
     assert torch.equal(yr.view(xg.shape), ys)
-    assert _stencil_err(ys, ref.stencil_spmv_ref(xg, **kw), ss, dtype) <= 1
-    pj = ref.jacobi_sweep_ref(xg, bg, dg, omega=0.8, **kw)
-    assert _stencil_err(yj, pj, xg.abs() + 0.8 * dg * (bg.abs() + ss), dtype) <= 1
+    # the single-grid product and the sweep: the plain versions' bits
+    assert torch.equal(ys, ref.stencil_spmv_ref(xg, **kw))
+    assert torch.equal(yj, ref.jacobi_sweep_ref(xg, bg, dg, omega=0.8, **kw))
     if nz >= 2:
+        # the boundary planes: the plain version's bits, with real halo
+        # planes, with null ones (through the C entry), and with out=, which
+        # leaves planes 1 .. nz-2 as they were
+        nb = st.stencil_spmv_boundary.launches
         yb = st.stencil_spmv_boundary(x, prev, nxt, **kw)
         assert yb.shape == (S, 2) + shape[2:]
-        assert _stencil_err(yb, ref.stencil_boundary_ref(x, prev, nxt, **kw),
-                            sh[:, [0, nz - 1]], dtype) <= 1
+        pb = ref.stencil_boundary_ref(x, prev, nxt, **kw)
+        yz = torch.empty_like(yb)
+        _build.check(getattr(lib, f"st_boundary_{st._SUFFIX[dtype]}")(
+            x.data_ptr(), None, None, yz.data_ptr(), S, nz, shape[2], shape[3], 2, 1,
+            *st.coef_args(stencil, aniso, dtype), st.stream(x)), "st_boundary")
+        fill = torch.randn_like(x)
+        out = fill.clone()
+        assert st.stencil_spmv_boundary(x, prev, nxt, out=out, **kw) is out
+        torch.cuda.synchronize()
+        assert st.stencil_spmv_boundary.launches == nb + 2
+        assert torch.equal(yb, pb)
+        assert torch.equal(yz, ref.stencil_boundary_ref(x, z, z, **kw))
+        assert torch.equal(out[:, [0, nz - 1]], pb)
+        assert torch.equal(out[:, 1:-1], fill[:, 1:-1])
 
 
 @pytest.mark.cuda
@@ -424,7 +445,8 @@ def test_cuda_stencil_boundary_planes_bitwise_equal_slab_kernel(cuda_device, ste
     from repro_torch.kernels import spmv_stencil as st
 
     kw = dict(stencil=stencil, aniso=aniso)
-    for shape in ((4, 16, 64, 64), (3, 2, 33, 45), (2, 5, 17, 23), (2, 67, 40, 70)):
+    for shape in ((4, 16, 64, 64), (3, 2, 33, 45), (2, 5, 17, 23), (2, 67, 40, 70),
+                  (1, 2, 7, 9), (2, 3, 130, 129), (8, 2, 517, 300)):
         x, prev, nxt, _, _ = _card_stencil(cuda_device, shape, dtype, seed=1)
         nz = shape[1]
         yh = st.stencil_spmv_halo(x, prev, nxt, bz=1, **kw)
