@@ -12,8 +12,10 @@ CUDA card with sm_90a). It
    registers, shared memory and spills of the redesigned kernels;
 2. holds each kernel against its plain PyTorch version on the card, in
    float64 and float32: the vector kernels at the main path's shape and at
-   a ragged one, the block kernels at the block path's (r = 8) and at
-   ragged ones (R - 3 with r = 3 and r = 17);
+   a ragged one (``fused_axpy`` also with a Python-number scalar and, bit
+   for bit, on a view 1 element off a 16-byte boundary), the block kernels
+   at the block path's (r = 8) and at ragged ones (R - 3 with r = 3 and
+   r = 17);
 3. times each kernel (median of CUDA-event timings), its plain version and,
    where one PyTorch call computes the same function, that call; the bound
    is the larger of the bytes the function must move over the card's
@@ -85,11 +87,32 @@ CUDA card with sm_90a). It
    * ten fused Jacobi sweeps (``ops.jacobi_stencil_sweep``) on the global
      grid with the residual from ``ops.stencil_spmv``: monotone, each sweep
      bitwise the plain version;
-10. profiles 20 iterations of hs, fcg, pipecg, block-HS and s-step (s = 2)
+10. AMG-PCG, float64, tol 1e-8:
+
+   * the torch locally-dominant matcher on the card against the numpy one
+     (poisson7 at side 64, compatible and plain weights, and a seeded
+     random graph): the same ``match`` arrays;
+   * the BCMG analog on poisson7 at side 256 (the main path's session):
+     ``api.solve(amg=True)`` with hs, fcg and pipecg, the hierarchy built
+     once (setup seconds split into aggregation, RAP, partition and
+     transfer; level rows; operator complexity; the solves after it
+     report no setup), each leg's relres, scipy residual and launches
+     against the formula (15 ``fused_axpy`` per level per V-cycle), each
+     within half of hs's iterations;
+   * ``fused_axpy`` with a Python-number scalar at the AMG levels'
+     per-shard lengths: within 2 eps of its plain version, and against
+     ``torch.addcmul`` (6 pairs of L2-flushed event times each);
+   * the AmgX analog (``amgx_analog=True``: plain weights, the host scan
+     matcher) at side 128, within half of hs's iterations on the same
+     matrix;
+11. profiles 20 iterations of hs, fcg, pipecg, block-HS and s-step (s = 2)
    with ``torch.profiler`` — and hs on BCSR (poisson7, boneS10), block-HS
-   on BCSR (boneS10), hs on HYB (G3_circuit) and matrix-free hs (poisson7):
-   device time per kernel and the device's busy share of the wall time;
-11. prints one JSON line describing every kernel (``launches`` summed over
+   on BCSR (boneS10), hs on HYB (G3_circuit), matrix-free hs (poisson7),
+   and AMG hs, fcg and pipecg (side 256) and the AmgX analog's hs (side
+   128): device time per kernel (and per torch op for AMG), the device's
+   busy share of the wall time, and the host's syncs and copies per
+   iteration (AMG: one sync, the loop test, and no host-to-device copy);
+12. prints one JSON line describing every kernel (``launches`` summed over
    the solve paths and the Jacobi sweeps), then, last, ``{"ok": true,
    "device": {...}}``.
 
@@ -123,6 +146,14 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float64": 34e12, "float32": 67e12}  # outside the tensor cores
 DOT_TOL = {"float64": 1e-13, "float32": 1e-5}
 ANISO = (1.0, 2.5, 7.0)  # the anisotropic 7pt stencil of the stencil kernel phase
+
+
+T_START = time.perf_counter()
+
+
+def stamp(phase: str):
+    """Print the seconds since the script started, after ``phase``."""
+    print(f"elapsed {time.perf_counter() - T_START:.1f} s after {phase}", flush=True)
 
 
 def smi(fields: str) -> str:
@@ -253,6 +284,15 @@ def kernel_phase(dev):
             d_p = ref.fused_dots_n_ref([(p, w), (r, r), (p, r)])
             a_k = fr.fused_axpy(beta, p, r)
             a_p = ref.fused_axpy_ref(beta, p, r)
+            # a Python number goes by value; a view 1 element off a 16-byte
+            # boundary takes one element per access: the same bits
+            n_k = fr.fused_axpy(-0.37, p, r)
+            n_p = ref.fused_axpy_ref(-0.37, p, r)
+            buf = torch.empty(SHARDS * R + 1, dtype=dt, device=dev)
+            pm = buf[1:].view(SHARDS, R)
+            pm.copy_(p)
+            same_m = bool(torch.equal(fr.fused_axpy(beta, pm, r), a_k))
+            del buf, pm
             o1k, o2k, nk = fr.fused_axpy2_dots(alpha, p, x, -alpha, w, r)
             o1p, o2p, np_ = ref.fused_axpy2_dots_ref(alpha, p, x, -alpha, w, r)
             q1k, q2k = fr.fused_axpy2(beta, p, r, -alpha, w, x)
@@ -266,6 +306,8 @@ def kernel_phase(dev):
                 ("fused_dots_n", "dots",
                  float(((d_k - d_p).abs() / scale).max()), DOT_TOL[tname]),
                 ("fused_axpy", "a*x+y", axpy_ok(a_k, a_p, beta, p, r, eps), 1.0),
+                ("fused_axpy", "number", axpy_ok(n_k, n_p, -0.37, p, r, eps), 1.0),
+                ("fused_axpy", "offset", 0.0 if same_m else float("inf"), 0.0),
                 ("fused_axpy2_dots", "o1", axpy_ok(o1k, o1p, alpha, p, x, eps), 1.0),
                 ("fused_axpy2_dots", "o2", axpy_ok(o2k, o2p, -alpha, w, r, eps), 1.0),
                 ("fused_axpy2_dots", "o2.o2",
@@ -879,7 +921,8 @@ def solve_path(tag, api, spec, config, sess, launches, expected):
               f"peak_mem={entry['peak_mem_bytes'] / 2**30:.3f} GiB", flush=True)
         check(s["relres"] <= 1e-8, f"{tag} {label}: relres {s['relres']} > 1e-8")
         check(res_max <= 1e-7, f"{tag} {label}: scipy residual {res_max} > 1e-7")
-    want = expected(rep.summary["BCMGX-analog"]["iters"], config.repeats)
+    lead = next(iter(rep.summary))  # BCMGX-analog, or AmgX-analog
+    want = expected(rep.summary[lead]["iters"], config.repeats)
     for name, n in got.items():
         formula, value = want.get(name, ("0", 0))
         print(f"launches {tag} {name:16s} {n} = {formula} -> {value}", flush=True)
@@ -919,10 +962,14 @@ def profile_phase(sess, dev, variant: str = "hs", nrhs: int = 1, iters: int = 20
     profile_solve(f"{label} [{sess.key[0]}, {mat.fmt}]", solve, b, iters, variant)
 
 
-def profile_solve(label, solve, b, iters: int, variant: str):
+def profile_solve(label, solve, b, iters: int, variant: str, torch_ops: bool = False):
     """Profile one ``solve(b, 0)`` that runs exactly ``iters`` iterations
     (after one warm-up solve): device time per kernel name per loop
-    iteration and the device's busy share of the wall time."""
+    iteration, the device's busy share of the wall time, and the host's
+    stream synchronisations and copies per iteration; ``torch_ops`` also
+    prints device time by torch op. Returns the per-iteration counts of
+    ``cudaStreamSynchronize``, ``cudaMemcpyAsync`` and host-to-device
+    copies."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -938,10 +985,11 @@ def profile_solve(label, solve, b, iters: int, variant: str):
     check(res.iters == iters, "profile run stopped early")
     # fcg and pipecg count their pre-loop step as iteration 1
     iters -= variant in ("fcg", "pipecg")
+    evs = prof.key_averages()  # aggregated once: an AMG window holds ~10^5 events
     # device-side events only (kernels, memcpy/memset): the CPU ops that
     # launched them carry the same device time again
     rows = [(e.key, e.self_device_time_total, e.count)
-            for e in prof.key_averages()
+            for e in evs
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy_us = sum(t for _, t, _ in rows)
     print(f"profile: {iters} {label} loop iterations, wall {wall * 1e3 / iters:.3f} ms/iter, "
@@ -950,6 +998,21 @@ def profile_solve(label, solve, b, iters: int, variant: str):
     for key, t, count in sorted(rows, key=lambda r: -r[1])[:12]:
         print(f"  {t / 1e3 / iters:8.4f} ms/iter  {count / iters:5.1f} calls/iter  "
               f"{key[:90]}", flush=True)
+    host = {k: sum(e.count for e in evs if e.key == k) / iters
+            for k in ("cudaStreamSynchronize", "cudaMemcpyAsync")}
+    host["htod"] = sum(e.count for e in evs if e.device_type == DeviceType.CUDA
+                       and "HtoD" in e.key) / iters
+    print(f"  host per iteration: {host['cudaStreamSynchronize']:.2f} cudaStreamSynchronize, "
+          f"{host['cudaMemcpyAsync']:.2f} cudaMemcpyAsync, {host['htod']:.2f} host-to-device "
+          f"copies", flush=True)
+    if torch_ops:
+        ops = [(e.key, e.self_device_time_total, e.count) for e in evs
+               if e.device_type == DeviceType.CPU and e.key.startswith("aten::")
+               and e.self_device_time_total > 0]
+        for key, t, count in sorted(ops, key=lambda r: -r[1])[:10]:
+            print(f"  torch op {t / 1e3 / iters:8.4f} ms/iter  {count / iters:6.1f} calls/iter  "
+                  f"{key}", flush=True)
+    return host
 
 
 def random_bcsr(dev, b, bpr, R, dtype, seed, S=SHARDS):
@@ -1409,6 +1472,225 @@ def jacobi_path(dev, launches):
         launches[name] += n
 
 
+AMG_SIDE_AMGX = 128  # the AmgX analog's side: its scan matcher is a host loop
+
+
+def amg_expected(variant, n_lv):
+    """Launches of one AMG-PCG ``api.solve`` (1 warm-up + ``rep`` timed
+    solves) with ``n_lv`` V-cycle levels above the coarse solve: each
+    V-cycle runs 15 ``fused_axpy`` per level (3 + 4 smoothing sweeps of two
+    updates, one residual). hs applies it once before the loop and once per
+    iteration, beside 2 dots, 1 ``fused_axpy2_dots`` and 1 ``fused_axpy``;
+    fcg once before the loop and once per loop iteration (iters - 1), beside
+    1 dots and 2 ``fused_axpy2``; pipecg twice before the loop and once per
+    loop iteration, beside 1 dots and 4 ``fused_axpy2``."""
+    v = 15 * n_lv
+
+    def expected(it, rep):
+        k = 1 + rep
+        if variant == "hs":
+            return {"fused_dots_n": (f"{k} x 2 x {it}", k * 2 * it),
+                    "fused_axpy2_dots": (f"{k} x {it}", k * it),
+                    "fused_axpy": (f"{k} x ({it} + {v} x (1 + {it}))", k * (it + v * (1 + it)))}
+        pre = 1 if variant == "fcg" else 2
+        per = 2 if variant == "fcg" else 4
+        return {"fused_dots_n": (f"{k} x ({it} - 1)", k * (it - 1)),
+                "fused_axpy2": (f"{k} x {per} x ({it} - 1)", k * per * (it - 1)),
+                "fused_axpy": (f"{k} x {v} x ({pre} + {it} - 1)", k * v * (pre + it - 1))}
+    return expected
+
+
+def amg_setup(tag, sess, amgx_analog=False):
+    """The session's AMG preconditioner, built here (the solves after it
+    report no setup): prints the setup seconds and their split, the level
+    rows and the operator complexity; returns ``(precond, info)``."""
+    check(bool(amgx_analog) not in sess.amgs, f"{tag}: the session already holds its AMG")
+    pre, info, setup_s = sess.amg(amgx_analog)
+    split = ", ".join(f"{k} {v:.2f} s" for k, v in info.setup_s.items())
+    print(f"{tag} setup: {setup_s:.2f} s ({split}); {info.n_levels} levels, rows "
+          f"{list(info.level_rows)}, nnz {list(info.level_nnz)}, operator complexity "
+          f"{info.operator_complexity:.4f}", flush=True)
+    return pre, info
+
+
+def amg_paths(api, spec, sess, dev, launches, hs_iters):
+    """AMG-PCG (the BCMG analog) on the main path's matrix: hs, fcg and
+    pipecg through ``api.solve(amg=True)`` on the session, which builds the
+    hierarchy once; each within half of hs's iterations. Returns the
+    preconditioner and the iterations per variant."""
+    import torch
+
+    pre, info = amg_setup("amg", sess)
+    n_lv = info.n_levels - 1
+    its = {}
+    for variant in ("hs", "fcg", "pipecg"):
+        torch.cuda.empty_cache()
+        rep = solve_path(f"amg-{variant}", api, spec,
+                         api.SolverConfig(amg=True, variant=variant, maxiter=MAXITER),
+                         sess, launches, amg_expected(variant, n_lv))
+        check(set(rep.summary) == {"BCMGX-analog"}, f"amg legs {set(rep.summary)}")
+        check(rep.ledger["amg"]["level_rows"] == list(info.level_rows), "amg payload")
+        check(rep.solvers["BCMGX-analog"]["setup_s"] == 0.0, f"amg-{variant}: setup reported "
+              "by a solve that reused the session's hierarchy")
+        its[variant] = rep.summary["BCMGX-analog"]["iters"]
+        print(f"amg-{variant}: iters {its[variant]} against hs {hs_iters} without AMG", flush=True)
+        check(its[variant] < hs_iters / 2, f"amg-{variant}: {its[variant]} iterations, "
+              f"not fewer than half of hs's {hs_iters}")
+    return pre, its
+
+
+def amgx_paths(api, dev, launches):
+    """The AmgX analog (plain weights, scan matcher) and, for the same
+    matrix, hs without AMG (the half-the-iterations mark): poisson7 at
+    side AMG_SIDE_AMGX over SHARDS shards."""
+    import numpy as np
+
+    spec = api.ProblemSpec("poisson7", side=AMG_SIDE_AMGX, shards=SHARDS)
+    sess = api.session_for(spec, dev)
+    it_hs = handle_solve(f"hs-{AMG_SIDE_AMGX}", sess, sess.matrix(), np.ones(sess.n), dev,
+                         launches)
+    tag = f"amgx_analog-{AMG_SIDE_AMGX}"
+    pre, info = amg_setup(tag, sess, amgx_analog=True)
+    rep = solve_path(tag, api, spec, api.SolverConfig(maxiter=MAXITER, amgx_analog=True), sess,
+                     launches, amg_expected("hs", info.n_levels - 1))
+    check(set(rep.summary) == {"AmgX-analog"}, f"{tag} legs {set(rep.summary)}")
+    it = rep.summary["AmgX-analog"]["iters"]
+    print(f"side {AMG_SIDE_AMGX}: hs {it_hs}, AmgX analog {it} iterations", flush=True)
+    check(it < it_hs / 2, f"{tag}: {it} iterations, not fewer than half of hs's {it_hs}")
+    return sess
+
+
+def matcher_phase(dev, a_main):
+    """The torch locally-dominant matcher on the card against the numpy
+    matcher, on poisson7 at side 64 (compatible and plain weights) and a
+    seeded random symmetric graph: the same ``match`` array; both timed.
+    Then the torch matcher alone on the compatible weights of the main
+    path's first shard (``a_main``'s first quarter of rows), timed with
+    the host's weights and ELL padding."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    from repro_torch.core.amg import matching as m
+    from repro_torch.matrices.poisson import cube, poisson_scipy
+
+    a = poisson_scipy(cube(64, "7pt"))
+    rng = np.random.default_rng(3)
+    n, e = 100_000, 500_000
+    g = sp.coo_matrix((rng.random(e) + 0.1, (rng.integers(0, n, e), rng.integers(0, n, e))),
+                      shape=(n, n)).tocsr()
+    g = g + g.T
+    g.setdiag(0)
+    g.eliminate_zeros()
+    cases = {"poisson7-64 compatible": m.compatible_weights(a),
+             "poisson7-64 plain": m.plain_weights(a), "random graph": g.tocsr()}
+    for name, w in cases.items():
+        wd, wc = m.weights_to_ell(w)
+        m.locally_dominant_matching(wd, wc, device=dev)  # warm-up
+        t0 = time.perf_counter()
+        got = m.locally_dominant_matching(wd, wc, device=dev)
+        t1 = time.perf_counter()
+        want = m.locally_dominant_matching_np(wd, wc)
+        t2 = time.perf_counter()
+        same = bool((got == want).all())
+        print(f"matcher {name}: n={len(got)} k={wd.shape[1]} torch on the card equal to numpy: "
+              f"{same}; {(got != np.arange(len(got))).sum()} matched; torch {1e3 * (t1 - t0):.1f} "
+              f"ms, numpy {1e3 * (t2 - t1):.1f} ms", flush=True)
+        check(same, f"matcher {name}: the torch matcher on the card differs from numpy")
+    R = a_main.shape[0] // SHARDS
+    t0 = time.perf_counter()
+    w = m.compatible_weights(a_main[:R, :R])
+    t1 = time.perf_counter()
+    wd, wc = m.weights_to_ell(w)
+    t2 = time.perf_counter()
+    got = m.locally_dominant_matching(wd, wc, device=dev)
+    t3 = time.perf_counter()
+    print(f"matcher main path shard 0 (n={R}): weights {t1 - t0:.2f} s, ELL {t2 - t1:.2f} s, "
+          f"torch matcher on the card {t3 - t2:.2f} s ({(got != np.arange(R)).sum()} matched)",
+          flush=True)
+
+
+def flushed_event_ms(fn, calls: int = 10) -> float:
+    """Median device time of one ``fn()`` call, each after a 64 MB write
+    that flushes L2, from CUDA events around the call alone. A spin kernel
+    queued first lets the host enqueue every call before the card reaches
+    it, so no host gap falls between a call's events (without it a call of
+    a few microseconds times the host's launch path)."""
+    import torch
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(20_000_000)  # about 10 ms of the card's clock
+    ev = []
+    for _ in range(calls):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        flush.zero_()
+        e0.record()
+        fn()
+        e1.record()
+        ev.append((e0, e1))
+    torch.cuda.synchronize()
+    return statistics.median(e0.elapsed_time(e1) for e0, e1 in ev)
+
+
+def axpy_levels_phase(pre):
+    """``fused_axpy`` with a Python-number scalar (as the V-cycle calls it)
+    at the AMG levels' per-shard lengths: held against its plain version
+    within 2 eps (the odd lengths run the per-shard head and tail), then
+    timed against ``torch.addcmul`` in 6 alternating pairs of L2-flushed
+    event times (``flushed_event_ms``)."""
+    import torch
+
+    from repro_torch.kernels import fused_reductions as fr
+    from repro_torch.kernels import ref
+
+    levels, _ = pre.data
+    g = torch.Generator(device="cuda").manual_seed(9)
+    a = torch.tensor(-1.0, dtype=torch.float64, device="cuda")
+    eps = torch.finfo(torch.float64).eps
+    for lev in levels:
+        R = lev.p_data.shape[-1]
+        x, y = (torch.randn(SHARDS, R, dtype=torch.float64, device="cuda", generator=g)
+                for _ in range(2))
+        err = axpy_ok(fr.fused_axpy(-1.0, x, y), ref.fused_axpy_ref(-1.0, x, y), -1.0, x, y, eps)
+        print(f"fused_axpy at an AMG level, S={SHARDS} R={R}: max |kernel - plain| / "
+              f"(2 eps (|a x| + |y|)) = {err:.3e}", flush=True)
+        check(err <= 1.0, f"fused_axpy at R={R} disagrees with its plain version: {err}")
+        tk, tl = [], []
+        for i in range(6):
+            for side in ((0, 1) if i % 2 == 0 else (1, 0)):
+                if side == 0:
+                    tk.append(flushed_event_ms(lambda: fr.fused_axpy(-1.0, x, y)))
+                else:
+                    tl.append(flushed_event_ms(lambda: torch.addcmul(y, a, x)))
+        ratios = [p / q for p, q in zip(tk, tl)]
+        bound = 3 * SHARDS * R * 8 / HBM_BYTES_PER_S * 1e3
+        print(f"fused_axpy at an AMG level, S={SHARDS} R={R}: kernel {statistics.median(tk):.5f} "
+              f"ms, addcmul {statistics.median(tl):.5f} ms, median ratio "
+              f"{statistics.median(ratios):.4f} (range {min(ratios):.4f}-{max(ratios):.4f}), "
+              f"bound {bound:.5f} ms", flush=True)
+
+
+def profile_amg(sess, dev, pre, variant, iters=20):
+    """20 iterations of AMG-PCG ``variant`` under the profiler: device time
+    by kernel and by torch op, the busy share, and host syncs per
+    iteration: one (the loop test) and no host-to-device copy."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.cg import make_solver
+    from repro_torch.core.partition import pad_vector
+
+    mat = sess.matrix()
+    solve = make_solver(mat, variant=variant, precond=pre, tol=1e-200, maxiter=iters,
+                        device=dev)
+    b = torch.from_numpy(pad_vector(np.ones(sess.n), mat)).to(dev)
+    host = profile_solve(f"amg {variant} [{sess.key[0]} side {sess.key[1]}, ell]", solve, b,
+                         iters, variant, torch_ops=True)
+    check(host["cudaStreamSynchronize"] <= 1.0 and host["htod"] == 0,
+          f"amg {variant}: {host} per iteration, not one sync and no host-to-device copy")
+
+
 def main():
     import numpy as np
     import torch
@@ -1437,6 +1719,7 @@ def main():
         for line in ptxas_report(log):
             print(f"  ptxas {line}", flush=True)
 
+    stamp("the kernel build")
     rows = kernel_phase(dev)
     torch.cuda.empty_cache()
     rows.update(block_kernel_phase(dev))
@@ -1445,6 +1728,7 @@ def main():
     torch.cuda.empty_cache()
     rows.update(stencil_kernel_phase(dev))
     torch.cuda.empty_cache()
+    stamp("the kernel phases")
 
     # --- the main path: hs CG + the Ginkgo-analog leg, float64 ------------
     spec = api.ProblemSpec("poisson7", side=SIDE, shards=SHARDS)
@@ -1480,6 +1764,7 @@ def main():
               f"max|y - A@x|/(|A|@|x|) = {err_r:.3e}", flush=True)
         check(err <= 1e-12 and err_r <= 1e-12, f"spmv {label} disagrees with scipy")
 
+    stamp("the main path and the SpMV path")
     # --- the later slices' paths on the same session --------------------
     reps = {}
     for tag, cfg, expected in later_paths(api):
@@ -1489,6 +1774,7 @@ def main():
     print(f"per_solve_wall_s: block-HS r={NRHS} {e_b['per_solve_wall_s']:.4f} s, "
           f"hs r=1 {hs_wall:.4f} s", flush=True)
 
+    stamp("fcg, pipecg and block-HS")
     # --- s-step CG: matrix powers, api.solve (s = 2), the handle (s = 4) --
     torch.cuda.empty_cache()
     matrix_powers_phase(sess, dev)
@@ -1511,6 +1797,16 @@ def main():
     print(f"sstep s={s1} seeded: iters {it4} against hs {it_hs5} on the same b", flush=True)
     check(it4 % s1 == 0, f"sstep s={s1} iterations {it4} not a multiple of {s1}")
 
+    stamp("s-step")
+    # --- AMG-PCG (the BCMG analog) on the main path's matrix --------------
+    torch.cuda.empty_cache()
+    matcher_phase(dev, sess.a)
+    stamp("the matcher phase")
+    pre_amg, _ = amg_paths(api, spec, sess, dev, launches, hs_iters)
+    stamp("AMG-PCG at side 256")
+    axpy_levels_phase(pre_amg)
+    stamp("fused_axpy at the AMG levels")
+
     # --- the matrix-free stencil path: SpMV, solves, Jacobi sweeps ---------
     torch.cuda.empty_cache()
     matfree_spmv_phase(sess, dev)
@@ -1519,6 +1815,7 @@ def main():
     ell.update(hs=(hs_iters, hs_wall), sstep=(it_ss, w_ss))
     matfree_paths(sess, dev, ell, launches)
     jacobi_path(dev, launches)
+    stamp("the matrix-free path")
 
     # --- the interior formats -------------------------------------------
     torch.cuda.empty_cache()
@@ -1539,6 +1836,11 @@ def main():
     torch.cuda.empty_cache()
     _, sess_g3, mat_g3 = suitesparse_session(api, "G3_circuit", dev)
     g3_paths(dev, sess_g3, mat_g3, launches)
+    stamp("the interior formats")
+    # --- the AmgX analog at side AMG_SIDE_AMGX ---------------------------
+    torch.cuda.empty_cache()
+    sess_amgx = amgx_paths(api, dev, launches)
+    stamp("the AmgX analog")
     for name, n in launches.items():
         rows[name]["launches"] = n
 
@@ -1555,6 +1857,12 @@ def main():
                   make_stencil_solver_fn(cube(SIDE, "7pt"), SHARDS, tol=1e-200, maxiter=20,
                                          device=dev),
                   torch.ones(SHARDS, sess.n // SHARDS, dtype=torch.float64, device=dev), 20, "hs")
+
+    stamp("the profiles without AMG")
+    for variant in ("hs", "fcg", "pipecg"):
+        profile_amg(sess, dev, pre_amg, variant)
+    profile_amg(sess_amgx, dev, sess_amgx.amg(True)[0], "hs")
+    stamp("the AMG profiles")
 
     keys =("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

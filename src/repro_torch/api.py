@@ -2,11 +2,12 @@
 
 Port of ``repro.api`` for the paths ported so far: ``op="cg"`` with the
 ``hs``, ``fcg``, ``pipecg`` and ``sstep`` variants (s-step CG on a
-``halo_depth = s`` partition), multi-RHS block-HS CG
+``halo_depth = s`` partition), AMG-preconditioned CG (``amg``, and the
+AmgX analog ``amgx_analog``), multi-RHS block-HS CG
 (``nrhs > 1``), and ``op="spmv"``, on the Poisson cubes and the SuiteSparse
 analogs, with an ELL, HYB or BCSR interior (``fmt``, or ``"auto"``: the
-stored-bytes cost model picks), with the BCMGX-analog leg and the
-Ginkgo-analog leg beside it where the JAX package runs one.
+stored-bytes cost model picks), with the BCMGX-analog (or AmgX-analog) leg
+and the Ginkgo-analog leg beside it where the JAX package runs one.
 
 * :class:`ProblemSpec` — *what* to solve (problem/side/scale/shards);
 * :class:`SolverConfig` — *how* to solve it, with the JAX package's
@@ -279,8 +280,6 @@ class SolverConfig:
     def check_ported(self):
         """Raise ``NotImplementedError`` for a valid config the port cannot
         run yet, naming its ``ROADMAP.md`` queue item."""
-        if self.amg or self.amgx_analog:
-            _not_ported("AMG preconditioning", "item 12")
         if self.autotune:
             _not_ported("autotuning", "item 13")
         if self.grid:
@@ -324,7 +323,10 @@ class SolverSession:
       partition; the all-gather Ginkgo-analog partition under
       ``("allgather", 0)``), with ``partition_s`` the seconds each took;
     * solver handles (``core.cg.solver_handle``), each carrying the energy
-      trace captured at its first solve.
+      trace captured at its first solve;
+    * the AMG preconditioners (:meth:`amg`). The JAX package builds the
+      hierarchy again on every solve; a session keeps it, as it keeps its
+      partitions, and only the solve that built it reports setup seconds.
 
     ``partitions`` / ``solves`` count the work actually performed.
     """
@@ -340,6 +342,7 @@ class SolverSession:
         self.mats: dict[tuple, Any] = {}
         self.partition_s: dict[tuple, float] = {}
         self.handles: dict[tuple, Any] = {}
+        self.amgs: dict[bool, tuple] = {}  # amgx_analog -> (precond, info)
         self.partitions = 0
         self.solves = 0
 
@@ -374,6 +377,27 @@ class SolverSession:
         return self._partition(self.matrix_key(fmt, block, depth), fmt=fmt,
                                block=(block, block), halo_depth=depth)
 
+    def amg(self, amgx_analog: bool = False) -> tuple:
+        """``(precond, info, setup_s)``: the AMG preconditioner of the
+        matrix on the session's device (the AmgX analog with
+        ``amgx_analog``), built on first use (the finest level reuses
+        :meth:`matrix`, built first if missing). ``setup_s`` is the seconds
+        this call spent building it: 0 when the session already held it
+        (``info.setup_s`` keeps the build's split)."""
+        key = bool(amgx_analog)
+        if key in self.amgs:
+            return (*self.amgs[key], 0.0)
+        from repro_torch.core.amg import make_amg_preconditioner
+
+        t0 = time.perf_counter()
+        # the finest level's matrix is the session's default partition
+        pre, info = make_amg_preconditioner(
+            self.a, self.n_shards, amgx_analog=key, device=self.device,
+            level0=self.matrix(),
+        )
+        self.amgs[key] = (pre, info)
+        return pre, info, time.perf_counter() - t0
+
     def naive_matrix(self):
         """The padded-global (all-gather) partition of the naive baseline."""
         return self._partition(("allgather", 0), force_allgather=True)
@@ -395,6 +419,7 @@ class SolverSession:
         self.mats.clear()
         self.partition_s.clear()
         self.handles.clear()
+        self.amgs.clear()
 
 
 #: Process-wide sessions keyed by (problem, side, scale, shards, device).
@@ -459,19 +484,25 @@ def solve(
 
     Loads (or reuses) the problem and its partitions through a warm
     :class:`SolverSession` (``session``, else :func:`session_for`), runs
-    the BCMGX-analog leg and the Ginkgo-analog leg under the energy trace —
-    the latter, as in the JAX package, beside every single-RHS CG solve (a
-    batched block-HS leg has no single-RHS baseline) and beside an SpMV
-    only when the interior format resolves to ELL (the baseline keeps the
-    flat ELL layout by definition) —
+    the BCMGX-analog leg (the AmgX-analog leg under ``amgx_analog``) and
+    the Ginkgo-analog leg under the energy trace — the latter, as in the
+    JAX package, beside every single-RHS CG solve without AMG (a batched
+    block-HS leg has no single-RHS baseline, and the paper compares its PCG
+    with AmgX) and beside an SpMV only when the interior format resolves to
+    ELL (the baseline keeps the flat ELL layout by definition) —
     prints the driver report (``verbose``), optionally writes the ledger
     JSON, and returns a :class:`SolveReport`. Everything runs in float64,
     as the JAX package's CLI does.
 
     Each CG leg runs one warm-up solve (whose counts become the energy
     trace) and then ``config.repeats`` timed solves; an SpMV leg one warm-up
-    and 100 timed products. ``device``: ``cuda`` unless ``"cpu"`` is passed
-    (ignored when ``session`` is given — the session fixes it).
+    and 100 timed products. ``amg``/``amgx_analog`` take the session's AMG
+    preconditioner (:meth:`SolverSession.amg`, built on first use; the
+    report's ``setup_s`` is the seconds this solve spent on that build, 0
+    when the session already held it, as the JAX package reports the
+    setup a solve performed). ``device``:
+    ``cuda`` unless ``"cpu"`` is passed (ignored when ``session`` is given
+    — the session fixes it).
     """
     config = config or SolverConfig()
     config.validate()
@@ -513,6 +544,20 @@ def solve(
         format=config.fmt, nrhs=config.nrhs, solvers={}, meta=ledger_meta(dev),
     )
     nrhs = config.nrhs
+    precond = None
+    setup_time = 0.0
+    if config.amg or config.amgx_analog:
+        precond, amg_info, setup_time = session.amg(config.amgx_analog)
+        log(
+            f"AMG: {amg_info.n_levels} levels rows={amg_info.level_rows} "
+            f"opcx={amg_info.operator_complexity:.2f} setup={setup_time:.4f}s"
+        )
+        payload["amg"] = dict(
+            n_levels=amg_info.n_levels,
+            level_rows=list(amg_info.level_rows),
+            level_nnz=list(amg_info.level_nnz),
+            operator_complexity=amg_info.operator_complexity,
+        )
     sstep_s = config.s or 2  # s-step block size (used iff variant == sstep)
     # an s-step solve partitions with halo_depth=s so the matrix-powers
     # basis pays one widened exchange per s-iteration block
@@ -521,8 +566,11 @@ def solve(
     mat = session.matrix(config.fmt, config.block, halo_depth=depth)
     # the naive baseline keeps the flat ELL layout and is single-RHS by
     # definition: its (expensive) all-gather partition is built only when
-    # a naive leg will run
-    need_naive = mat.fmt == "ell" if config.op == "spmv" else nrhs == 1
+    # a naive leg will run (the paper compares its PCG with AmgX, not Ginkgo)
+    need_naive = (
+        mat.fmt == "ell" if config.op == "spmv"
+        else nrhs == 1 and precond is None
+    )
     matg = session.naive_matrix() if need_naive else None
     log(
         f"format={mat.fmt} (requested {config.fmt}) "
@@ -598,10 +646,11 @@ def solve(
         )
 
     legs = [
-        ("BCMGX-analog", mat, mkey, session.solver(
-            mat, nrhs=nrhs, variant=config.variant, tol=config.tol,
-            maxiter=config.maxiter, overlap=overlap, s=sstep_s,
-        )),
+        ("AmgX-analog" if config.amgx_analog else "BCMGX-analog", mat, mkey,
+         session.solver(
+             mat, nrhs=nrhs, variant=config.variant, precond=precond,
+             tol=config.tol, maxiter=config.maxiter, overlap=overlap, s=sstep_s,
+         )),
     ]
     if need_naive:
         legs.append(("Ginkgo-analog", matg, ("allgather", 0), session.solver(
@@ -623,7 +672,7 @@ def solve(
         # the batched leg converges each column independently: report the
         # slowest column's residual (convergence of the whole batch)
         relres = float(res.rel_residual.max())
-        is_bcmgx = label == "BCMGX-analog"
+        is_bcmgx = label != "Ginkgo-analog"
         led = trace.ledger_from_trace(
             tr, iters=iters, n_shards=n_shards, cost=cost,
             overlap=(overlap and is_bcmgx), idle_s=0.01,
@@ -638,13 +687,13 @@ def solve(
             f"wall={wall:.4f}s modeled={t_model:.4e}s "
             f"DE={e['de_total']:.4f}J peak={e['gpu_power_peak']:.0f}W "
             f"DEgpu={e['de_gpu']:.4f}J DEcpu={e['de_cpu']:.4f}J "
-            f"setup=0.0000s solve={wall:.4f}s"
+            f"setup={setup_time:.4f}s solve={wall:.4f}s"
         )
         if verbose:
             _print_regions(label, led)
         entry = dict(
             led, wall_s=wall, modeled_s=t_model,
-            relres=relres, setup_s=0.0,
+            relres=relres, setup_s=setup_time,
             variant=config.variant if is_bcmgx else "naive",
             # per-solve amortization view: a batched run is nrhs solves
             nrhs=nrhs,

@@ -60,7 +60,8 @@ from repro_torch.launch.mesh import resolve_device
 
 class Preconditioner(NamedTuple):
     """A distributed preconditioner: ``apply(data, r) -> z`` on stacked
-    vectors. Only the identity is ported (AMG is ROADMAP queue 1, item 12)."""
+    vectors — the identity, or the AMG V-cycle
+    (``core.amg.make_amg_preconditioner``)."""
 
     data: Any
     apply: Callable[[Any, torch.Tensor], torch.Tensor]

@@ -29,7 +29,27 @@
 //   iteration counts repeat. Sums accumulate in the input type, as the JAX
 //   package's kernels do.
 // * Scalars stay on the device: alpha/beta arrive as device pointers with a
-//   shard stride (0 for one global scalar, 1 for one per shard).
+//   shard stride (0 for one global scalar, 1 for one per shard). fused_axpy
+//   also takes a scalar by value (a null pointer selects it), so a caller's
+//   Python number costs no host-to-device copy and no stream sync.
+//
+// fused_axpy streams 3 vectors and does one FMA per element, so its time is
+// the memory pipe's; the design, as measured on an H100 (PERF.md):
+//
+// * 16-byte accesses: each thread loads and stores one double2 / float4. A
+//   shard whose rows start off a 16-byte boundary (odd R in f64, or a view
+//   that starts 8 bytes in) does its few head and tail elements one by one;
+//   when x, y and o are not equally aligned the kernel takes one element per
+//   access (still exactly right, just narrower).
+// * Many small tiles: one block per 256 units of a shard, each thread one
+//   unit per operand. This measured faster than one wave of blocks striding
+//   over the shard (3%) and than 2, 4 or 8 units per thread.
+// * Streaming stores (st.global.cs): o is written once and not read again
+//   here. They measured 0.2-1.8% faster than plain stores at every length
+//   of the AMG levels; streaming loads were 1-2% slower at the longest,
+//   and both together 3%.
+// * Exactly one fma(a, x, y) per element: the bits equal those of the
+//   kernel it replaces, which the compiler also contracted to one FMA.
 //
 // C interface, for ctypes: pointers and the stream are void*, sizes are
 // long long, and every entry returns cudaGetLastError() after its launches
@@ -143,27 +163,79 @@ partials_sum_kernel(const T* __restrict__ partials, int nblk, int k_out, T* __re
   }
 }
 
-// o = a[s] * x + y
+// ---- fused_axpy: o = a * x + y -----------------------------------------
+
+constexpr int kAxpyThreads = 256;  // one 16-byte unit (or one element) each
+
+// The scalar of fused_axpy: a device pointer with a shard stride, or, when
+// the pointer is null, a value passed by value at launch.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-axpy_kernel(const T* __restrict__ a, long long a_stride, const T* __restrict__ x,
-            const T* __restrict__ y, T* __restrict__ o, long long R) {
+struct AxpyScalar {
+  const T* ptr;
+  long long stride;
+  T val;
+  __device__ __forceinline__ T get(int s) const { return ptr ? ptr[s * stride] : val; }
+};
+
+// The access unit: a 16-byte vector of T, or T itself on the narrow path.
+template <typename T, bool kVec>
+struct Unit {
+  using type = T;
+  static constexpr int n = 1;
+};
+template <>
+struct Unit<double, true> {
+  using type = double2;
+  static constexpr int n = 2;
+};
+template <>
+struct Unit<float, true> {
+  using type = float4;
+  static constexpr int n = 4;
+};
+
+__device__ __forceinline__ double fma_unit(double a, double x, double y) { return fma(a, x, y); }
+__device__ __forceinline__ float fma_unit(float a, float x, float y) { return fmaf(a, x, y); }
+__device__ __forceinline__ double2 fma_unit(double a, double2 x, double2 y) {
+  return make_double2(fma(a, x.x, y.x), fma(a, x.y, y.y));
+}
+__device__ __forceinline__ float4 fma_unit(float a, float4 x, float4 y) {
+  return make_float4(fmaf(a, x.x, y.x), fmaf(a, x.y, y.y), fmaf(a, x.z, y.z), fmaf(a, x.w, y.w));
+}
+
+// Grid (nbx, S): block (bx, s) takes tile bx of shard s's 16-byte units
+// (kVec) or elements, one per thread; block 0 of each shard also does the
+// shard's unaligned head (< 16 bytes) and its ragged tail (< one unit).
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kAxpyThreads)
+axpy_kernel(AxpyScalar<T> a, const T* __restrict__ x, const T* __restrict__ y,
+            T* __restrict__ o, long long R) {
+  using U = typename Unit<T, kVec>::type;
+  constexpr int V = Unit<T, kVec>::n;
   const int s = blockIdx.y;
+  const T av = a.get(s);
   const long long row = (long long)s * R;
-  const long long base = (long long)blockIdx.x * kTile + threadIdx.x;
-  const T av = a[s * a_stride];
-  T xv[kItems], yv[kItems];
-#pragma unroll
-  for (int it = 0; it < kItems; ++it) {
-    const long long i = base + (long long)it * kThreads;
-    const bool ok = i < R;
-    xv[it] = ok ? x[row + i] : T(0);
-    yv[it] = ok ? y[row + i] : T(0);
+  const T* xs = x + row;
+  const T* ys = y + row;
+  T* os = o + row;
+  long long head = 0;
+  if (kVec) {
+    const unsigned mis = (unsigned)((uintptr_t)xs & 15u);
+    head = mis ? (long long)((16u - mis) / sizeof(T)) : 0;
+    if (head > R) head = R;
   }
-#pragma unroll
-  for (int it = 0; it < kItems; ++it) {
-    const long long i = base + (long long)it * kThreads;
-    if (i < R) o[row + i] = av * xv[it] + yv[it];
+  const long long nunit = (R - head) / V;
+  if (blockIdx.x == 0) {
+    const long long tail = head + nunit * V;  // R - tail < V
+    const int t = threadIdx.x;
+    if (t < head) __stcs(os + t, fma_unit(av, xs[t], ys[t]));
+    if (t < R - tail) __stcs(os + tail + t, fma_unit(av, xs[tail + t], ys[tail + t]));
+  }
+  const long long i = (long long)blockIdx.x * kAxpyThreads + threadIdx.x;
+  if (i < nunit) {
+    const U* xu = reinterpret_cast<const U*>(xs + head);
+    const U* yu = reinterpret_cast<const U*>(ys + head);
+    __stcs(reinterpret_cast<U*>(os + head) + i, fma_unit(av, xu[i], yu[i]));
   }
 }
 
@@ -267,13 +339,27 @@ int launch_dots(const void* p0, const void* p1, const void* p2, const void* p3, 
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_axpy(const void* a, long long a_stride, const void* x, const void* y, void* o,
-                long long S, long long R, void* stream) {
-  if (bad_shape(S, R)) return (int)cudaErrorInvalidValue;
-  axpy_kernel<T><<<dim3(tiles(R), (unsigned)S), kThreads, 0, (cudaStream_t)stream>>>(
-      (const T*)a, a_stride, (const T*)x, (const T*)y, (T*)o, R);
+template <typename T, bool kVec>
+int launch_axpy_as(AxpyScalar<T> a, const T* x, const T* y, T* o, long long S, long long R,
+                   cudaStream_t st) {
+  const long long units = R / Unit<T, kVec>::n + 1;
+  const long long nbx = (units + kAxpyThreads - 1) / kAxpyThreads;
+  if (nbx > 0x7fffffffLL) return (int)cudaErrorInvalidValue;  // the grid's x limit
+  axpy_kernel<T, kVec><<<dim3((unsigned)nbx, (unsigned)S), kAxpyThreads, 0, st>>>(a, x, y, o, R);
   return (int)cudaGetLastError();
+}
+
+// ``a`` null: the scalar is ``a_val``; else a[s * a_stride] on the device.
+template <typename T>
+int launch_axpy(const void* a, long long a_stride, T a_val, const void* x, const void* y,
+                void* o, long long S, long long R, void* stream) {
+  if (bad_shape(S, R)) return (int)cudaErrorInvalidValue;
+  const AxpyScalar<T> sc{(const T*)a, a_stride, a_val};
+  const uintptr_t phase = (uintptr_t)x & 15u;
+  const bool vec = ((uintptr_t)y & 15u) == phase && ((uintptr_t)o & 15u) == phase;
+  cudaStream_t st = (cudaStream_t)stream;
+  return vec ? launch_axpy_as<T, true>(sc, (const T*)x, (const T*)y, (T*)o, S, R, st)
+             : launch_axpy_as<T, false>(sc, (const T*)x, (const T*)y, (T*)o, S, R, st);
 }
 
 template <typename T>
@@ -326,13 +412,15 @@ int fr_dots_f64(const void* p0, const void* p1, const void* p2, const void* p3, 
   return launch_dots<double>(p0, p1, p2, p3, n_ops, n_prods, code, S, R, partials, out, stream);
 }
 
-int fr_axpy_f32(const void* a, long long a_stride, const void* x, const void* y, void* o,
-                long long S, long long R, void* stream) {
-  return launch_axpy<float>(a, a_stride, x, y, o, S, R, stream);
+// o = a * x + y over (S, R). ``a`` a device pointer read at a[s * a_stride]
+// (stride 0: one scalar, 1: one per shard), or null to use ``a_val``.
+int fr_axpy_f32(const void* a, long long a_stride, float a_val, const void* x, const void* y,
+                void* o, long long S, long long R, void* stream) {
+  return launch_axpy<float>(a, a_stride, a_val, x, y, o, S, R, stream);
 }
-int fr_axpy_f64(const void* a, long long a_stride, const void* x, const void* y, void* o,
-                long long S, long long R, void* stream) {
-  return launch_axpy<double>(a, a_stride, x, y, o, S, R, stream);
+int fr_axpy_f64(const void* a, long long a_stride, double a_val, const void* x, const void* y,
+                void* o, long long S, long long R, void* stream) {
+  return launch_axpy<double>(a, a_stride, a_val, x, y, o, S, R, stream);
 }
 
 int fr_axpy2_f32(const void* a1, long long s1, const void* x1, const void* y1, const void* a2,

@@ -18,9 +18,12 @@ built by ``kernels/_build.py`` and called through ctypes. Each wrapper:
   where the kernel is launched and nowhere else; :func:`reset_launches`).
 
 Scalars (alpha, beta) may be 0-d or ``(S,)`` tensors, coefficient blocks
-are ``(r, r)`` (``(s, s)`` and ``(s,)`` for the s-step kernels); on the card the kernels read them through a device pointer, so no scalar or block ever crosses to the host here. A
-non-contiguous streamed operand on the card raises (no quiet copy); the
-small coefficients are made contiguous.
+are ``(r, r)`` (``(s, s)`` and ``(s,)`` for the s-step kernels); on the
+card the kernels read them through a device pointer, so no scalar or block
+ever crosses to the host here. :func:`fused_axpy` also takes a Python
+number, which its kernel receives by value: no device tensor is made for
+it and the host does not wait. A non-contiguous streamed operand on the
+card raises (no quiet copy); the small coefficients are made contiguous.
 
 :data:`KERNELS` describes each kernel: the TPU kernel it replaces, what
 bounds it on the card (bytes: these are streaming passes with one or two
@@ -32,6 +35,7 @@ and its plain version.
 from __future__ import annotations
 
 import ctypes
+import numbers
 
 import torch
 
@@ -49,7 +53,8 @@ _SIGNATURES = {
     "fr_tile": (),
     **{f"fr_dots_{t}": (_P, _P, _P, _P, _I, _I, _I, _L, _L, _P, _P, _P)
        for t in ("f32", "f64")},
-    **{f"fr_axpy_{t}": (_P, _L, _P, _P, _P, _L, _L, _P) for t in ("f32", "f64")},
+    **{f"fr_axpy_{t}": (_P, _L, v, _P, _P, _P, _L, _L, _P)
+       for t, v in (("f32", ctypes.c_float), ("f64", ctypes.c_double))},
     **{f"fr_axpy2_{t}": (_P, _L, _P, _P, _P, _L, _P, _P, _P, _P, _L, _L, _P)
        for t in ("f32", "f64")},
     **{f"fr_axpy2_dots_{t}": (_P, _L, _P, _P, _P, _L, _P, _P, _P, _P, _L, _L,
@@ -265,20 +270,27 @@ def fused_dots_n(pairs) -> torch.Tensor:
                     out.data_ptr(), _stream(x0)), "fused_dots_n")
     fused_dots_n.launches += 1
     if out_map != tuple(range(k)):
-        out = out[:, list(out_map)]
+        # columns picked one by one: a list index would be copied from the
+        # host, and the host would wait for it
+        out = torch.stack([out[:, j] for j in out_map], dim=-1)
     return out if x0.dim() == 2 else out[0]
 
 
 def fused_axpy(a, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """``a*x + y`` in one pass; ``a`` a 0-d or per-shard ``(S,)`` scalar."""
+    """``a*x + y`` in one pass; ``a`` a Python number (passed to the kernel
+    by value) or a 0-d or per-shard ``(S,)`` tensor (read on the device)."""
     S, R = _as_stack("fused_axpy", (x, y))
     if x.device.type != "cuda":
         return ref.fused_axpy_ref(a, x, y)
     lib = _lib()
-    av, astride = _scalar_arg("fused_axpy", a, x, S)
+    if isinstance(a, numbers.Real):
+        aptr, astride, aval = None, 0, float(a)
+    else:
+        av, astride = _scalar_arg("fused_axpy", a, x, S)
+        aptr, aval = av.data_ptr(), 0.0
     o = torch.empty_like(x)
     fn = getattr(lib, f"fr_axpy_{_SUFFIX[x.dtype]}")
-    _build.check(fn(av.data_ptr(), astride, x.data_ptr(), y.data_ptr(),
+    _build.check(fn(aptr, astride, aval, x.data_ptr(), y.data_ptr(),
                     o.data_ptr(), S, R, _stream(x)), "fused_axpy")
     fused_axpy.launches += 1
     return o

@@ -55,14 +55,60 @@ def test_cuda_fused_dots_n_matches_plain(cuda_device):
 
 
 @pytest.mark.cuda
-def test_cuda_fused_axpy_matches_plain(cuda_device):
-    x, y = _card_vecs(cuda_device, 2)
-    a = torch.tensor(0.37, dtype=x.dtype, device=cuda_device)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("R", [100_003, 4096, 7, 2, 1])
+@pytest.mark.parametrize("scalar", ["number", "0-d", "per-shard"])
+@pytest.mark.parametrize("offset", [0, 1, 3])
+def test_cuda_fused_axpy_matches_plain(cuda_device, offset, scalar, R, dtype):
+    """16-byte units with a head and a tail per shard, or one element per
+    access when the operands are aligned differently: x starts ``offset``
+    elements into a buffer, and y as far off a 16-byte boundary as x, but
+    for ``offset == 3``, where y is 2 elements further on."""
+    S = 3
+    g = torch.Generator(device=cuda_device).manual_seed(R + offset)
+    L = (S * R + 3) // 4 * 4 + 4  # a whole number of 16-byte units in both types
+    buf = torch.randn(2 * L + 8, dtype=dtype, device=cuda_device, generator=g)
+    x = buf[offset: offset + S * R].view(S, R)
+    yo = offset + L + (2 if offset == 3 else 0)
+    y = buf[yo: yo + S * R].view(S, R)
+    a = {"number": -0.37,
+         "0-d": torch.tensor(0.37, dtype=dtype, device=cuda_device),
+         "per-shard": torch.rand(S, dtype=dtype, device=cuda_device, generator=g)}[scalar]
+    n0 = fr.fused_axpy.launches
     o = fr.fused_axpy(a, x, y)
     p = ref.fused_axpy_ref(a, x, y)
     torch.cuda.synchronize()
-    eps = torch.finfo(x.dtype).eps
-    assert bool(((o - p).abs() <= 2 * eps * ((a * x).abs() + y.abs())).all())
+    assert fr.fused_axpy.launches == n0 + 1
+    av = ref._scalar(a, x)
+    eps = torch.finfo(dtype).eps
+    assert bool(((o - p).abs() <= 2 * eps * ((av * x).abs() + y.abs())).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("call", ["axpy with a Python number", "dots with a repeated pair"])
+def test_cuda_wrappers_make_no_host_copy(cuda_device, call):
+    """A Python-number scalar goes to ``fused_axpy``'s kernel by value, and
+    ``fused_dots_n`` picks a repeated product's column without a host
+    index (fcg's ``[(r, r), (w, r), (r, r)]``): no host-to-device copy and
+    no stream synchronisation."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x, y = _card_vecs(cuda_device, 2)
+    fn, kernel = {
+        "axpy with a Python number": (lambda: fr.fused_axpy(-1.0, x, y), "axpy_kernel"),
+        "dots with a repeated pair": (lambda: fr.fused_dots_n([(x, x), (y, x), (x, x)]),
+                                      "dots_tile_kernel"),
+    }[call]
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            fn()
+    torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()]
+    # (the profiler's own cudaDeviceSynchronize at its end is not the call's)
+    assert not [k for k in names if "emcpy" in k or "cudaStreamSynchronize" in k], names
+    assert sum(e.count for e in prof.key_averages() if kernel in e.key) == 5, names
 
 
 @pytest.mark.cuda
@@ -516,6 +562,63 @@ def test_cuda_matrix_free_solve_matches_cpu(cuda_device, variant):
                                        device=dev)
         res[dev] = solve(b, torch.zeros_like(b))
     assert abs(res["cuda"].iters - res["cpu"].iters) <= (2 if variant == "sstep" else 1)
+    assert float(res["cuda"].rel_residual) <= 1e-10
+    xc, xg = res["cpu"].x, res["cuda"].x.cpu()
+    assert float((xg - xc).abs().max()) <= 1e-9 * float(xc.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("graph", ["compatible", "plain", "random"])
+def test_cuda_matcher_equals_numpy(cuda_device, graph):
+    """The torch locally-dominant matcher on the card gives the numpy
+    matcher's ``match`` array."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    from repro_torch.core.amg import matching as m
+    from repro_torch.matrices.poisson import cube, poisson_scipy
+
+    if graph == "random":
+        rng = np.random.default_rng(1)
+        n, e = 5000, 20000
+        w = sp.coo_matrix((rng.random(e) + 0.1, (rng.integers(0, n, e), rng.integers(0, n, e))),
+                          shape=(n, n)).tocsr()
+        w = w + w.T
+        w.setdiag(0)
+        w.eliminate_zeros()
+    else:
+        w = getattr(m, f"{graph}_weights")(poisson_scipy(cube(24, "7pt")))
+    wd, wc = m.weights_to_ell(w)
+    got = m.locally_dominant_matching(wd, wc, device=cuda_device)
+    assert (got == m.locally_dominant_matching_np(wd, wc)).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant,amgx", [("hs", False), ("fcg", False), ("pipecg", False),
+                                          ("hs", True)])
+def test_cuda_amg_solve_matches_cpu(cuda_device, variant, amgx):
+    """AMG-PCG on the card (the hierarchy built with the matcher there, the
+    V-cycle through ``fused_axpy``) against the same solve on the CPU: the
+    same hierarchy, iterations within 1 and x within 1e-9."""
+    import numpy as np
+
+    from repro_torch.core.amg import make_amg_preconditioner
+    from repro_torch.core.cg import make_solver
+    from repro_torch.core.partition import pad_vector, partition_csr
+    from repro_torch.matrices.poisson import cube, poisson_scipy
+
+    a = poisson_scipy(cube(20, "7pt"))
+    m = partition_csr(a, 4)
+    b = torch.from_numpy(pad_vector(np.ones(a.shape[0]), m))
+    res, infos = {}, {}
+    n0 = fr.fused_axpy.launches
+    for dev in ("cpu", "cuda"):
+        pre, infos[dev] = make_amg_preconditioner(a, 4, amgx_analog=amgx, device=dev)
+        solve = make_solver(m, variant=variant, precond=pre, tol=1e-10, maxiter=200, device=dev)
+        res[dev] = solve(b, torch.zeros_like(b))
+    assert infos["cpu"] == infos["cuda"]
+    assert fr.fused_axpy.launches - n0 >= 15 * (infos["cuda"].n_levels - 1) * res["cuda"].iters
+    assert abs(res["cuda"].iters - res["cpu"].iters) <= 1
     assert float(res["cuda"].rel_residual) <= 1e-10
     xc, xg = res["cpu"].x, res["cuda"].x.cpu()
     assert float((xg - xc).abs().max()) <= 1e-9 * float(xc.abs().max())
