@@ -35,6 +35,15 @@ CUDA card with sm_90a). It
    with the same checks per column, each kernel's launch count against
    the count its iterations imply (the formula is printed), and the block
    path's ``per_solve_wall_s`` beside hs's wall;
+6a. the 2-D process grid at the same size: ``api.solve`` with
+   ``grid="2x2"`` (the pencil-permuted matrix, per-dimension halos, staged
+   all-reduces, no Ginkgo leg), hs then pipecg on the same partition —
+   the pencil-reorder and partition seconds, each variant's iterations
+   within 1 of its 1-D count, relres and the scipy residual of the
+   un-permuted ``x``, the ledger's ``halo_bytes_rows``/``halo_bytes_cols``
+   against ``pencil_halo_widths`` (their sum the 1-D ring's bytes), ms per
+   iteration beside the 1-D hs, launches, and a 20-iteration profile of
+   grid hs with its device-busy share;
 7. the interior formats, on the SuiteSparse analogs at the paper's row
    counts (``scale=1.0``) over 4 stacked shards in float64:
 
@@ -108,10 +117,10 @@ CUDA card with sm_90a). It
 11. profiles 20 iterations of hs, fcg, pipecg, block-HS and s-step (s = 2)
    with ``torch.profiler`` — and hs on BCSR (poisson7, boneS10), block-HS
    on BCSR (boneS10), hs on HYB (G3_circuit), matrix-free hs (poisson7),
-   and AMG hs, fcg and pipecg (side 256) and the AmgX analog's hs (side
-   128): device time per kernel (and per torch op for AMG), the device's
-   busy share of the wall time, and the host's syncs and copies per
-   iteration (AMG: one sync, the loop test, and no host-to-device copy);
+   and AMG hs (side 256) and the AmgX analog's hs (side 128): device time
+   per kernel (and per torch op for AMG), the device's busy share of the
+   wall time, and the host's syncs and copies per iteration (AMG: one
+   sync, the loop test, and no host-to-device copy);
 12. prints one JSON line describing every kernel (``launches`` summed over
    the solve paths and the Jacobi sweeps), then, last, ``{"ok": true,
    "device": {...}}``.
@@ -932,19 +941,22 @@ def solve_path(tag, api, spec, config, sess, launches, expected):
 
 
 def profile_phase(sess, dev, variant: str = "hs", nrhs: int = 1, iters: int = 20,
-                  fmt: str = "ell", seeded: bool = False, s: int = 2):
+                  fmt: str = "ell", seeded: bool = False, s: int = 2, grid=None):
     """Where an iteration's time goes: ``iters`` iterations of a path's
     solver on the ``fmt`` partition under ``torch.profiler``; prints device
     time per kernel name (per iteration) and the device's busy share of the
     wall time. ``seeded`` solves for a seeded random right-hand side (the
-    SuiteSparse analogs' ``b = ones`` is ``A @ 1``, solved in one step)."""
+    SuiteSparse analogs' ``b = ones`` is ``A @ 1``, solved in one step).
+    ``grid`` takes the session's 2-D grid partition (a pencil session's
+    row blocks)."""
     import numpy as np
     import torch
 
     from repro_torch.core.cg import default_rhs_block, make_block_solver, make_solver
     from repro_torch.core.partition import pad_block, pad_vector
 
-    mat = sess.matrix(fmt, BLOCK, halo_depth=s if variant == "sstep" else 1)
+    mat = sess.matrix(fmt, BLOCK, halo_depth=s if variant == "sstep" else 1, grid=grid,
+                      partition=sess.pencil[2] if grid else None)
     rng = np.random.default_rng(0)
     # a tolerance far below reach: exactly `iters` iterations run
     if nrhs > 1:
@@ -959,6 +971,7 @@ def profile_phase(sess, dev, variant: str = "hs", nrhs: int = 1, iters: int = 20
         b = torch.from_numpy(pad_vector(bv, mat)).to(dev)
     label = f"{variant} r={nrhs}" if nrhs > 1 else variant
     label += f" s={s}" if variant == "sstep" else ""
+    label += f" grid {grid[0]}x{grid[1]}" if grid else ""
     profile_solve(f"{label} [{sess.key[0]}, {mat.fmt}]", solve, b, iters, variant)
 
 
@@ -1176,6 +1189,67 @@ def handle_solve(tag, sess, mat, b_np, dev, launches, variant="hs", s=2):
         check(n == value, f"{tag}: {name} launched {n} times, expected {value}")
         launches[name] += n
     return it
+
+
+def grid_paths(api, dev, spec, sess_1d, ref_1d, launches):
+    """The 2-D process grid at full width: ``spec`` on a 2 x 2 grid through
+    ``api.solve`` — the pencil-permuted matrix (its session built from the
+    1-D session's matrix), hs then pipecg on one grid partition. Checks
+    each variant's iterations within 1 of ``iters_1d[variant]``, relres,
+    the scipy residual of the un-permuted ``x`` against the original
+    matrix, the ledger's per-dimension halo bytes against the pencil
+    model (their sum the 1-D ring's bytes) and the launches; prints ms per
+    iteration beside the 1-D solve's (``ref_1d[variant] = (iters,
+    wall_s)``); profiles 20 iterations of grid hs; then releases the grid
+    session."""
+    import numpy as np
+
+    from repro_torch.matrices.poisson import cube
+    from repro_torch.roofline.analysis import pencil_halo_widths
+
+    grid = (2, 2)
+    t0 = time.perf_counter()
+    sess = api.session_for(spec, dev, grid=grid)
+    _, perm, part = sess.pencil
+    print(f"grid {grid[0]}x{grid[1]}: session {time.perf_counter() - t0:.2f} s, pencil reorder "
+          f"{sess.reorder_s:.2f} s, row blocks {part.row_starts}", flush=True)
+    widths = pencil_halo_widths(cube(spec.side, spec.stencil), grid)
+    want_rows = 8.0 * sum(w for (di, _), w in widths.items() if di)
+    want_cols = 8.0 * sum(w for (_, dj), w in widths.items() if dj)
+    ring_b = sess_1d.matrix().plan.collective_bytes_per_shard(8)
+    expect = {"hs": hs_expected("ell"), "pipecg": dict(
+        (t, e) for t, _, e in later_paths(api))["pipecg"]}
+    a1 = sess_1d.a
+    ones = np.ones(sess.n)
+    out = {}
+    for variant in ("hs", "pipecg"):
+        tag = f"grid-{variant}"
+        cfg = api.SolverConfig(variant=variant, grid=f"{grid[0]}x{grid[1]}", maxiter=MAXITER)
+        rep = solve_path(tag, api, spec, cfg, sess, launches, expect[variant])
+        check(set(rep.summary) == {"BCMGX-analog"}, f"{tag}: legs {sorted(rep.summary)}")
+        s = rep.summary["BCMGX-analog"]
+        led = rep.ledger
+        x = np.empty(sess.n)
+        x[perm] = rep.outputs["BCMGX-analog"]  # back to the original order
+        res = float(np.linalg.norm(ones - a1 @ x) / np.linalg.norm(ones))
+        it, (it1, wall1) = s["iters"], ref_1d[variant]
+        print(f"{tag}: iters {it} (1-D {it1}), relres {s['relres']:.3e}, scipy residual of "
+              f"the un-permuted x {res:.3e}, halo_bytes_rows {led['halo_bytes_rows']:.0f} "
+              f"halo_bytes_cols {led['halo_bytes_cols']:.0f} (pencil model {want_rows:.0f}, "
+              f"{want_cols:.0f}; 1-D ring {ring_b}), partition "
+              f"{rep.solvers['BCMGX-analog']['partition_s']:.2f} s, "
+              f"{1e3 * s['wall_s'] / it:.3f} ms/iter against 1-D {variant} "
+              f"{1e3 * wall1 / it1:.3f}", flush=True)
+        check(abs(it - it1) <= 1, f"{tag}: {it} iterations, 1-D {it1}")
+        check(res <= 1e-7, f"{tag}: scipy residual of the un-permuted x {res}")
+        check(led["grid"] == list(grid), f"{tag}: ledger grid {led.get('grid')}")
+        check((led["halo_bytes_rows"], led["halo_bytes_cols"]) == (want_rows, want_cols),
+              f"{tag}: halo bytes {led['halo_bytes_rows']}, {led['halo_bytes_cols']}")
+        check(want_rows + want_cols == ring_b, f"{tag}: rows + cols != the 1-D ring's bytes")
+        out[variant] = it
+    profile_phase(sess, dev, "hs", 1, grid=grid)
+    api.SESSIONS.pop(sess.key).close()  # frees the card's copy before the next paths
+    return out
 
 
 def hs_expected(fmt):
@@ -1775,6 +1849,13 @@ def main():
           f"hs r=1 {hs_wall:.4f} s", flush=True)
 
     stamp("fcg, pipecg and block-HS")
+    # --- the 2-D process grid: hs and pipecg on a 2 x 2 pencil grid --------
+    torch.cuda.empty_cache()
+    s_pipe = reps["pipecg"].summary["BCMGX-analog"]
+    grid_paths(api, dev, spec, sess, dict(hs=(hs_iters, hs_wall),
+                                          pipecg=(s_pipe["iters"], s_pipe["wall_s"])), launches)
+    torch.cuda.empty_cache()
+    stamp("the 2-D grid")
     # --- s-step CG: matrix powers, api.solve (s = 2), the handle (s = 4) --
     torch.cuda.empty_cache()
     matrix_powers_phase(sess, dev)
@@ -1859,8 +1940,7 @@ def main():
                   torch.ones(SHARDS, sess.n // SHARDS, dtype=torch.float64, device=dev), 20, "hs")
 
     stamp("the profiles without AMG")
-    for variant in ("hs", "fcg", "pipecg"):
-        profile_amg(sess, dev, pre_amg, variant)
+    profile_amg(sess, dev, pre_amg, "hs")
     profile_amg(sess_amgx, dev, sess_amgx.amg(True)[0], "hs")
     stamp("the AMG profiles")
 

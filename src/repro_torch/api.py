@@ -7,7 +7,10 @@ AmgX analog ``amgx_analog``), multi-RHS block-HS CG
 (``nrhs > 1``), and ``op="spmv"``, on the Poisson cubes and the SuiteSparse
 analogs, with an ELL, HYB or BCSR interior (``fmt``, or ``"auto"``: the
 stored-bytes cost model picks), with the BCMGX-analog (or AmgX-analog) leg
-and the Ginkgo-analog leg beside it where the JAX package runs one.
+and the Ginkgo-analog leg beside it where the JAX package runs one. CG
+also runs on a 2-D ``R x C`` process grid (``grid="RxC"``): per-dimension
+halos, all-reduces staged over the grid, and, for a Poisson cube, the
+pencil-permuted system.
 
 * :class:`ProblemSpec` — *what* to solve (problem/side/scale/shards);
 * :class:`SolverConfig` — *how* to solve it, with the JAX package's
@@ -15,8 +18,9 @@ and the Ginkgo-analog leg beside it where the JAX package runs one.
 * :func:`solve` — the full driver, returning a :class:`SolveReport`;
 * :class:`SolverSession` — the warm per-matrix state behind it: partition
   once, keep every solver handle alive. :func:`session_for` keeps a small
-  dict of sessions keyed by problem, shard count and device, in place of
-  the JAX package's fingerprint-keyed session pool.
+  dict of sessions keyed by problem, shard count and device (and the grid
+  of a pencil-permuted Poisson cube), in place of the JAX package's
+  fingerprint-keyed session pool.
 
 Every shard of a problem is stacked on one device. Entry points run on
 ``cuda`` unless the caller passes ``device="cpu"``; with no GPU and no
@@ -176,6 +180,11 @@ class SolverConfig:
     def __post_init__(self):
         self.validate()
 
+    @property
+    def grid_shape(self) -> tuple[int, int] | None:
+        """``(rows, cols)`` of the requested process grid, or ``None``."""
+        return parse_grid(self.grid) if self.grid else None
+
     def validate(self):
         if self.op not in OPS:
             raise ConfigError(f"op must be one of {OPS}: {self.op!r}")
@@ -282,8 +291,6 @@ class SolverConfig:
         run yet, naming its ``ROADMAP.md`` queue item."""
         if self.autotune:
             _not_ported("autotuning", "item 13")
-        if self.grid:
-            _not_ported("the 2-D process grid (--grid)", "item 10")
         if self.telemetry:
             _not_ported("convergence telemetry", "item 14")
 
@@ -296,7 +303,9 @@ class SolveReport:
     JSON payload ``--ledger`` writes; ``outputs`` maps each leg to its last
     result as a host numpy array in global (unpadded) order — the solution
     ``x`` of a CG leg (the ``(n, nrhs)`` block of a block leg), ``y = A @ 1``
-    of an SpMV leg."""
+    of an SpMV leg. On a 2-D grid a Poisson cube is solved in the pencil
+    order: ``x`` is in the permuted order (``x[perm]`` of the original
+    system's solution, ``perm`` from ``pencil_partition``)."""
 
     problem: str
     n: int
@@ -319,19 +328,24 @@ class SolverSession:
     device, and keeps what is expensive to derive from it:
 
     * ``mats`` — ``(fmt, block) -> DistMat`` partitions on the session's
-      device (``(fmt, block, ("halo", k))`` for a ``halo_depth = k > 1``
-      partition; the all-gather Ginkgo-analog partition under
-      ``("allgather", 0)``), with ``partition_s`` the seconds each took;
+      device (``(fmt, block, (R, C))`` on a 2-D process grid,
+      ``+ (("halo", k),)`` for a ``halo_depth = k > 1`` partition; the
+      all-gather Ginkgo-analog partition under ``("allgather", 0)``), with
+      ``partition_s`` the seconds each took;
     * solver handles (``core.cg.solver_handle``), each carrying the energy
       trace captured at its first solve;
     * the AMG preconditioners (:meth:`amg`). The JAX package builds the
       hierarchy again on every solve; a session keeps it, as it keeps its
       partitions, and only the solve that built it reports setup seconds.
 
-    ``partitions`` / ``solves`` count the work actually performed.
+    ``partitions`` / ``solves`` count the work actually performed. A
+    session of a pencil-permuted Poisson cube holds ``A[perm][:, perm]``
+    and ``pencil = (grid, perm, row_partition)``, ``reorder_s`` the seconds
+    the permutation took (:func:`session_for`).
     """
 
-    def __init__(self, a_csr, n_shards: int, *, device=None, key=None):
+    def __init__(self, a_csr, n_shards: int, *, device=None, key=None,
+                 pencil=None, reorder_s: float = 0.0):
         from repro_torch.launch.mesh import resolve_device
 
         self.a = a_csr.tocsr()
@@ -339,6 +353,8 @@ class SolverSession:
         self.n_shards = int(n_shards)
         self.device = resolve_device(device)
         self.key = key
+        self.pencil = pencil
+        self.reorder_s = float(reorder_s)
         self.mats: dict[tuple, Any] = {}
         self.partition_s: dict[tuple, float] = {}
         self.handles: dict[tuple, Any] = {}
@@ -363,19 +379,29 @@ class SolverSession:
         return self.mats[k]
 
     @staticmethod
-    def matrix_key(fmt: str = "ell", block: int = 4, halo_depth: int = 1) -> tuple:
-        """The ``mats`` key of a partition: depth-tagged for a deep halo."""
+    def matrix_key(fmt: str = "ell", block: int = 4, halo_depth: int = 1,
+                   grid=None) -> tuple:
+        """The ``mats`` key of a partition: ``(fmt, block[, grid])``,
+        depth-tagged for a deep halo."""
         k = (fmt, int(block))
+        if grid is not None:
+            k = k + ((int(grid[0]), int(grid[1])),)
         depth = max(int(halo_depth), 1)
         return k + (("halo", depth),) if depth > 1 else k
 
-    def matrix(self, fmt: str = "ell", block: int = 4, *, halo_depth: int = 1):
-        """The DistMat for (fmt, block); partitions on first use.
-        ``halo_depth > 1`` builds the s-step ghost zones under a
-        depth-tagged key."""
+    def matrix(self, fmt: str = "ell", block: int = 4, *, grid=None,
+               partition=None, halo_depth: int = 1):
+        """The DistMat for (fmt, block[, grid]); partitions on first use.
+        ``grid=(R, C)`` plans per-dimension halos (``GridPlan``);
+        ``partition`` fixes the row blocks (the ``pencil_partition`` of a
+        permuted Poisson cube); ``halo_depth > 1`` builds the s-step ghost
+        zones under a depth-tagged key."""
         depth = max(int(halo_depth), 1)
-        return self._partition(self.matrix_key(fmt, block, depth), fmt=fmt,
-                               block=(block, block), halo_depth=depth)
+        if grid is not None:
+            grid = (int(grid[0]), int(grid[1]))
+        return self._partition(self.matrix_key(fmt, block, depth, grid), fmt=fmt,
+                               block=(block, block), grid=grid,
+                               partition=partition, halo_depth=depth)
 
     def amg(self, amgx_analog: bool = False) -> tuple:
         """``(precond, info, setup_s)``: the AMG preconditioner of the
@@ -422,24 +448,54 @@ class SolverSession:
         self.amgs.clear()
 
 
-#: Process-wide sessions keyed by (problem, side, scale, shards, device).
+#: Process-wide sessions keyed by (problem, side, scale, shards, device,
+#: pencil grid or None).
 SESSIONS: "collections.OrderedDict[tuple, SolverSession]" = collections.OrderedDict()
 SESSION_LIMIT = 4
 
 
-def session_for(spec: ProblemSpec, device=None) -> SolverSession:
+def _pencil_grid(spec: ProblemSpec, grid) -> tuple[int, int] | None:
+    """The grid whose pencil order a solve of ``spec`` on ``grid`` uses: a
+    true 2-D grid (``R > 1``) on a Poisson cube, else None."""
+    if grid is None or int(grid[0]) <= 1 or spec.stencil is None:
+        return None
+    return (int(grid[0]), int(grid[1]))
+
+
+def session_for(spec: ProblemSpec, device=None, grid=None) -> SolverSession:
     """The warm session for ``spec`` on ``device``, loading and keeping the
     matrix on first use (least recently used sessions are closed past
-    :data:`SESSION_LIMIT`)."""
+    :data:`SESSION_LIMIT`).
+
+    For a Poisson cube on a 2-D ``grid = (R, C)``, ``R > 1``, the session
+    holds the pencil-permuted matrix ``A[perm][:, perm]``
+    (``core.partition.pencil_partition``), as the JAX package builds its
+    grid session from the permuted matrix; it is keyed apart from the 1-D
+    session of the same spec, so neither reuses the other's matrix,
+    partitions or handles; the permuted matrix is built from the 1-D
+    session's when that one is warm."""
     from repro_torch.launch.mesh import resolve_device
 
     dev = resolve_device(device)
     n_shards = spec.shards or 1
-    key = (spec.problem, int(spec.side), float(spec.scale), n_shards, str(dev))
+    pgrid = _pencil_grid(spec, grid)
+    key = (spec.problem, int(spec.side), float(spec.scale), n_shards, str(dev), pgrid)
     sess = SESSIONS.get(key)
     if sess is None:
-        a, _ = spec.load()
-        sess = SolverSession(a, n_shards, device=dev, key=key)
+        base = SESSIONS.get(key[:-1] + (None,)) if pgrid is not None else None
+        a = base.a if base is not None else spec.load()[0]
+        pencil, reorder_s = None, 0.0
+        if pgrid is not None:
+            from repro_torch.core.partition import pencil_partition
+            from repro_torch.matrices import poisson
+
+            t0 = time.perf_counter()
+            perm, part = pencil_partition(poisson.cube(spec.side, spec.stencil), pgrid)
+            a = a[perm][:, perm].tocsr()
+            reorder_s = time.perf_counter() - t0
+            pencil = (pgrid, perm, part)
+        sess = SolverSession(a, n_shards, device=dev, key=key, pencil=pencil,
+                             reorder_s=reorder_s)
         SESSIONS[key] = sess
         while len(SESSIONS) > SESSION_LIMIT:
             SESSIONS.popitem(last=False)[1].close()
@@ -455,6 +511,19 @@ def _print_regions(label: str, ledger: dict):
             label, name, r["time_s"], r["de_j"], r["flops"],
             r["hbm_bytes"], r["ici_bytes"],
         )
+
+
+def _plan_dim_bytes(plan) -> tuple[float, float]:
+    """Per-shard halo bytes per exchange, split by grid dimension.
+
+    GridPlan: the per-dimension widths (a corner buffer crosses both links,
+    so it counts in both entries and the two sum to the hop-weighted
+    collective total). 1-D plans: all traffic rides the single flat axis —
+    the ``cols`` axis of the equivalent ``1 x N`` grid."""
+    if plan.mode == "grid":
+        rows_b, cols_b = plan.dim_bytes_per_shard(8)
+        return float(rows_b), float(cols_b)
+    return 0.0, float(plan.collective_bytes_per_shard(8))
 
 
 def write_ledger_json(path: str | None, payload: dict):
@@ -494,6 +563,14 @@ def solve(
     JSON, and returns a :class:`SolveReport`. Everything runs in float64,
     as the JAX package's CLI does.
 
+    ``config.grid = "RxC"`` (``R * C`` must equal the shard count) runs CG
+    on a 2-D process grid: ``1 x N`` is the 1-D layout; with ``R > 1`` the
+    partition plans per-dimension halos, every all-reduce is staged over
+    the grid, a Poisson cube is solved in the pencil order (the session of
+    the permuted matrix, :func:`session_for`), the cost model charges the
+    staged tree depth, and no Ginkgo-analog leg runs. The ledger then
+    carries ``grid``, ``halo_bytes_rows`` and ``halo_bytes_cols``.
+
     Each CG leg runs one warm-up solve (whose counts become the energy
     trace) and then ``config.repeats`` timed solves; an SpMV leg one warm-up
     and 100 timed products. ``amg``/``amgx_analog`` take the session's AMG
@@ -522,14 +599,39 @@ def solve(
         if verbose:
             LOG.info("%s", msg)
 
+    n_shards = session.n_shards if session is not None else (spec.shards or 1)
+    grid_cfg = config.grid_shape
+    grid = None
+    if grid_cfg is not None:
+        if grid_cfg[0] * grid_cfg[1] != n_shards:
+            raise ConfigError(
+                f"--grid {config.grid} covers "
+                f"{grid_cfg[0] * grid_cfg[1]} shards; running with "
+                f"{n_shards}"
+            )
+        if grid_cfg[0] > 1:  # 1 x N is the 1-D layout; build it identically
+            grid = grid_cfg
     if session is None:
-        session = session_for(spec, device)
+        session = session_for(spec, device, grid=grid)
     dev = session.device
     a = session.a
     name = spec.label
     n = a.shape[0]
-    n_shards = session.n_shards
     b = np.ones(n)
+    grid_part = None
+    pgrid = _pencil_grid(spec, grid)
+    if pgrid is not None:
+        # the pencil-reordered system A[perm][:, perm] (same spectrum, CG
+        # iterates the same up to the permutation): each shard owns a z x y
+        # pencil, its halo scales with the pencil's surface; b = ones is its
+        # own permutation and x comes back permuted, as in the JAX package
+        if session.pencil is not None and session.pencil[0] == pgrid:
+            grid_part = session.pencil[2]
+        else:
+            from repro_torch.core.partition import pencil_partition
+            from repro_torch.matrices import poisson
+
+            grid_part = pencil_partition(poisson.cube(spec.side, spec.stencil), pgrid)[1]
     log(f"problem={name} n={n} nnz={a.nnz} shards={n_shards} nrhs={config.nrhs}")
 
     def sync():
@@ -537,6 +639,13 @@ def solve(
             torch.cuda.synchronize(dev)
 
     cost = CostModel()
+    if grid is not None:
+        from repro_torch.roofline.analysis import reduce_hops
+
+        # grid collectives stage over the grid's columns, then its rows: no
+        # launch is deeper than the longer one (the extra stage launches
+        # are in the trace)
+        cost = dataclasses.replace(cost, coll_hops=float(reduce_hops(n_shards, grid)))
     overlap = config.overlap
     payload = dict(
         schema=1, problem=name, n=int(n), nnz=int(a.nnz),
@@ -562,14 +671,16 @@ def solve(
     # an s-step solve partitions with halo_depth=s so the matrix-powers
     # basis pays one widened exchange per s-iteration block
     depth = sstep_s if (config.variant == "sstep" and config.op == "cg") else 1
-    mkey = session.matrix_key(config.fmt, config.block, depth)
-    mat = session.matrix(config.fmt, config.block, halo_depth=depth)
+    mkey = session.matrix_key(config.fmt, config.block, depth, grid)
+    mat = session.matrix(config.fmt, config.block, grid=grid, partition=grid_part,
+                         halo_depth=depth)
     # the naive baseline keeps the flat ELL layout and is single-RHS by
     # definition: its (expensive) all-gather partition is built only when
-    # a naive leg will run (the paper compares its PCG with AmgX, not Ginkgo)
+    # a naive leg will run (the paper compares its PCG with AmgX, not
+    # Ginkgo; a grid run's comparison leg is the 1-D run of the problem)
     need_naive = (
         mat.fmt == "ell" if config.op == "spmv"
-        else nrhs == 1 and precond is None
+        else nrhs == 1 and precond is None and grid is None
     )
     matg = session.naive_matrix() if need_naive else None
     log(
@@ -585,6 +696,12 @@ def solve(
         # fallback reports 1: the matrix-powers path did not engage)
         payload["halo_depth"] = int(mat.halo_depth)
         payload["s"] = int(sstep_s)
+    if grid_cfg is not None:
+        # written whenever a grid is given, 1 x N included
+        rows_b, cols_b = _plan_dim_bytes(mat.plan)
+        payload["grid"] = [int(grid_cfg[0]), int(grid_cfg[1])]
+        payload["halo_bytes_rows"] = rows_b
+        payload["halo_bytes_cols"] = cols_b
 
     dt = mat.dtype
     if nrhs > 1:

@@ -24,7 +24,10 @@ The JAX package runs the solver inside one jitted ``shard_map`` with a
 ``(S, R)`` shard layout on one device:
 
 * every collective is an explicit sum over the shard axis of per-shard
-  partials, recorded like the JAX package records its ``psum``;
+  partials, recorded like the JAX package records its ``psum``; on a 2-D
+  process grid (a ``GridPlan`` matrix) each one is staged over the grid's
+  columns, then its rows (``vectors.all_reduce``), as the JAX package
+  threads its ``(rows, cols)`` mesh axes into every body;
 * the hot-loop vector work goes through the kernel dispatch ``OpSet`` —
   on a CUDA device the hand-written Hopper kernels;
 * each loop test (``rr > tol2``, or ``any(diag(RR) > tol2)`` for the block
@@ -51,7 +54,7 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from repro_torch.core.partition import DistMat
-from repro_torch.core.spmv import matrix_powers, overlap_default, spmv_shard
+from repro_torch.core.spmv import matrix_grid, matrix_powers, overlap_default, spmv_shard
 from repro_torch.core.vectors import all_reduce, fused_blocks, fused_dots, pdot
 from repro_torch.energy import trace
 from repro_torch.kernels import dispatch as kd
@@ -134,7 +137,7 @@ def _loop(cond, body, c):
 # ---------------------------------------------------------------------------
 
 
-def _hs_body(A, pre: Preconditioner, pdata, b, x0, *, tol, maxiter, ops):
+def _hs_body(A, pre: Preconditioner, pdata, b, x0, *, tol, maxiter, ops, grid=None):
     """Hestenes–Stiefel PCG; 2 all-reduces/iter (one fused).
 
     With the identity preconditioner each iteration is 3 full-vector HBM
@@ -147,7 +150,7 @@ def _hs_body(A, pre: Preconditioner, pdata, b, x0, *, tol, maxiter, ops):
     with trace.region("precond"):
         z = pre.apply(pdata, r)
     with trace.region("reductions"):
-        d0 = fused_dots([(r, z), (r, r), (b, b)])
+        d0 = fused_dots([(r, z), (r, r), (b, b)], grid)
     rz, rr, bb = d0[0], d0[1], d0[2]
     tol2 = tol * tol * bb
 
@@ -161,7 +164,7 @@ def _hs_body(A, pre: Preconditioner, pdata, b, x0, *, tol, maxiter, ops):
             with trace.region("spmv"):
                 w = A(p)
             with trace.region("reductions"):
-                pw = all_reduce(ops.fused_dots_n([(p, w)])[..., 0])  # all-reduce 1
+                pw = all_reduce(ops.fused_dots_n([(p, w)])[..., 0], grid)  # all-reduce 1
                 trace.record_collective(1, w.element_size())
                 alpha = rz / pw
                 # x += alpha p ; r -= alpha w ; local r'.r' — ONE pass
@@ -169,7 +172,7 @@ def _hs_body(A, pre: Preconditioner, pdata, b, x0, *, tol, maxiter, ops):
             if pre.is_identity:
                 z = r
                 with trace.region("reductions"):
-                    rr = all_reduce(rr_loc[..., 0])  # all-reduce 2
+                    rr = all_reduce(rr_loc[..., 0], grid)  # all-reduce 2
                     trace.record_collective(1, w.element_size())
                 rz_new = rr
             else:
@@ -177,7 +180,7 @@ def _hs_body(A, pre: Preconditioner, pdata, b, x0, *, tol, maxiter, ops):
                     z = pre.apply(pdata, r)
                 with trace.region("reductions"):
                     rz_loc = ops.fused_dots_n([(r, z)])[..., 0]
-                    d = all_reduce(torch.stack([rz_loc, rr_loc[..., 0]], dim=-1))
+                    d = all_reduce(torch.stack([rz_loc, rr_loc[..., 0]], dim=-1), grid)
                     trace.record_collective(2, w.element_size())
                 rz_new, rr = d[0], d[1]
             beta = rz_new / rz
@@ -189,7 +192,7 @@ def _hs_body(A, pre: Preconditioner, pdata, b, x0, *, tol, maxiter, ops):
     return c[1], c[0], c[6], bb
 
 
-def _fcg_body(A, pre: Preconditioner, pdata, b, x0, *, tol, maxiter, ops):
+def _fcg_body(A, pre: Preconditioner, pdata, b, x0, *, tol, maxiter, ops, grid=None):
     """Single-synchronization (communication-reduced flexible) CG.
 
     Chronopoulos–Gear two-term recurrence: ONE fused all-reduce per
@@ -206,7 +209,7 @@ def _fcg_body(A, pre: Preconditioner, pdata, b, x0, *, tol, maxiter, ops):
     with trace.region("spmv"):
         w = A(u)
     with trace.region("reductions"):
-        d0 = fused_dots([(r, u), (w, u), (r, r), (b, b)])
+        d0 = fused_dots([(r, u), (w, u), (r, r), (b, b)], grid)
     gamma, delta, rr, bb = d0[0], d0[1], d0[2], d0[3]
     tol2 = tol * tol * bb
 
@@ -231,7 +234,7 @@ def _fcg_body(A, pre: Preconditioner, pdata, b, x0, *, tol, maxiter, ops):
                 w = A(u)
             with trace.region("reductions"):
                 d = all_reduce(  # the ONE all-reduce
-                    ops.fused_dots_n([(r, u), (w, u), (r, r)])
+                    ops.fused_dots_n([(r, u), (w, u), (r, r)]), grid
                 )
                 trace.record_collective(3, w.element_size())
                 gamma_new, delta, rr = d[0], d[1], d[2]
@@ -246,7 +249,7 @@ def _fcg_body(A, pre: Preconditioner, pdata, b, x0, *, tol, maxiter, ops):
 
 
 def _pipecg_body(A, pre: Preconditioner, pdata, b, x0, *, tol, maxiter, ops,
-                 overlap=True):
+                 overlap=True, grid=None):
     """Ghysels–Vanroose pipelined PCG: ONE all-reduce/iter, hidden.
 
     The fused reduction (w·r and ||r||² under the identity preconditioner)
@@ -273,7 +276,7 @@ def _pipecg_body(A, pre: Preconditioner, pdata, b, x0, *, tol, maxiter, ops,
     with trace.region("spmv"):
         w = A(u)
     with trace.region("reductions"):
-        d0 = fused_dots([(r, u), (w, u), (r, r), (b, b)])
+        d0 = fused_dots([(r, u), (w, u), (r, r), (b, b)], grid)
     gamma, delta, rr, bb = d0[0], d0[1], d0[2], d0[3]
     tol2 = tol * tol * bb
 
@@ -295,7 +298,7 @@ def _pipecg_body(A, pre: Preconditioner, pdata, b, x0, *, tol, maxiter, ops,
         """Issue the ONE fused all-reduce (the SpMV that follows does not
         depend on its result — that independence is the pipeline)."""
         pairs = [(w, r), (r, r)] if pre.is_identity else [(r, u), (w, u), (r, r)]
-        d = all_reduce(ops.fused_dots_n(pairs))
+        d = all_reduce(ops.fused_dots_n(pairs), grid)
         trace.record_collective(len(pairs), w.element_size())
         return d
 
@@ -351,7 +354,7 @@ def _pipecg_body(A, pre: Preconditioner, pdata, b, x0, *, tol, maxiter, ops,
 
 
 def _sstep_body(A, pre: Preconditioner, pdata, b, x0, *, tol, maxiter, s, ops,
-                mat=None):
+                mat=None, grid=None):
     """s-step CG (Chronopoulos–Gear): ONE fused all-reduce per s iterations.
 
     Monomial basis P = [u, (MA)u, ..., (MA)^{s-1}u] with u = M r, conjugated
@@ -382,7 +385,7 @@ def _sstep_body(A, pre: Preconditioner, pdata, b, x0, *, tol, maxiter, s, ops,
     with trace.region("spmv"):
         r = b - A(x0)
     with trace.region("reductions"):
-        bb = pdot(b, b)
+        bb = pdot(b, b, grid)
     tol2 = tol * tol * bb
     eye = torch.eye(s, dtype=dt, device=b.device)
 
@@ -415,7 +418,7 @@ def _sstep_body(A, pre: Preconditioner, pdata, b, x0, *, tol, maxiter, s, ops,
         Pb, Wb = build_basis(r)
         # ONE fused all-reduce: [P^T W (s*s) | W_prev^T P (s*s) | P^T r (s) | rr]
         with trace.region("reductions"):
-            flat = fused_blocks([ops.sstep_gram(Pb, Wb, Wp, r)])
+            flat = fused_blocks([ops.sstep_gram(Pb, Wb, Wp, r)], grid)
         Gpp = flat[: s * s].reshape(s, s)
         C = flat[s * s : 2 * s * s].reshape(s, s)
         g = flat[2 * s * s : 2 * s * s + s]
@@ -461,7 +464,7 @@ def _sstep_body(A, pre: Preconditioner, pdata, b, x0, *, tol, maxiter, s, ops,
     return c[2], c[0], c[7], bb
 
 
-def _block_hs_body(A, B, X0, *, tol, maxiter, ops):
+def _block_hs_body(A, B, X0, *, tol, maxiter, ops, grid=None):
     """Breakdown-guarded block Hestenes–Stiefel CG for (S, R, r) RHS blocks.
 
     The scalar recurrences become r×r Gram algebra: alpha/beta are small
@@ -493,7 +496,7 @@ def _block_hs_body(A, B, X0, *, tol, maxiter, ops):
         R_ = B - A(X0)
     with trace.region("reductions"):
         rr0_loc, bb_loc = ops.block_gram([(R_, R_), (B, B)])
-        d0 = fused_blocks([rr0_loc, torch.diagonal(bb_loc, dim1=-2, dim2=-1)])
+        d0 = fused_blocks([rr0_loc, torch.diagonal(bb_loc, dim1=-2, dim2=-1)], grid)
     RR = d0[: nrhs * nrhs].reshape(nrhs, nrhs)
     bb = d0[nrhs * nrhs:]
     tol2 = tol * tol * bb  # per-column targets
@@ -519,12 +522,12 @@ def _block_hs_body(A, B, X0, *, tol, maxiter, ops):
                 W = A(Pb)  # matrix read once for all r columns
             with trace.region("reductions"):
                 pw_loc = ops.block_gram([(Pb, W)])[0]
-                PW = fused_blocks([pw_loc]).reshape(nrhs, nrhs)  # AR 1
+                PW = fused_blocks([pw_loc], grid).reshape(nrhs, nrhs)  # AR 1
                 alpha = _msolve(PW, RR, md)
                 # X += P alpha ; R -= W alpha — ONE fused pass
                 X, R_ = ops.block_update2(alpha, Pb, X, -alpha, W, R_)
                 rr_loc = ops.block_gram([(R_, R_)])[0]
-                RRn = fused_blocks([rr_loc]).reshape(nrhs, nrhs)  # AR 2
+                RRn = fused_blocks([rr_loc], grid).reshape(nrhs, nrhs)  # AR 2
                 beta = _msolve(RR, RRn, md)
                 Pb = ops.block_update(beta, Pb, R_, mask=md)
         it_cols = torch.where(torch.diagonal(RRn) <= tol2,
@@ -586,7 +589,8 @@ def make_solver(
     mat = mat.to(dev)
     pre = precond or identity_precond()
     body = _BODIES[variant]
-    kw = dict(tol=tol, maxiter=maxiter, ops=kd.ops_for(kernels))
+    # a grid matrix stages every all-reduce over its (R, C) grid
+    kw = dict(tol=tol, maxiter=maxiter, ops=kd.ops_for(kernels), grid=matrix_grid(mat))
     if variant == "pipecg":
         kw["overlap"] = overlap
     if variant == "sstep":
@@ -653,6 +657,7 @@ def make_block_solver(
         with overlap_default(overlap):
             X, iters, it_cols, rr, bb = _block_hs_body(
                 A, B.to(dev), X0.to(dev), tol=tol, maxiter=maxiter, ops=ops,
+                grid=matrix_grid(mat),
             )
         return BlockSolveResult(x=X, iters=int(iters), iters_cols=it_cols,
                                 rr=rr, bb=bb)

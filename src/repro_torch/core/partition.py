@@ -1,6 +1,6 @@
 """Block-row partitioning + halo-exchange planning (host side, numpy).
 
-Port of the 1-D ring path of ``repro.core.partition``:
+Port of ``repro.core.partition``:
 
 * matrices are distributed in **blocks of contiguous rows** across shards,
   with 4-byte local column indices;
@@ -14,6 +14,10 @@ Port of the 1-D ring path of ``repro.core.partition``:
 * the halo exchange is planned as ring shifts (every off-shard coupling
   reaches at most ``max_ring`` shards away) or falls back to an all-gather
   of the whole vector ("allgather" mode, also the Ginkgo-analog layout);
+* on a 2-D ``R x C`` process grid (``grid=``, :class:`GridPlan`) the
+  shifts become per-dimension ``(di, dj)`` deltas; paired with the pencil
+  row order of :func:`pencil_partition`, a shard's halo scales with its
+  pencil's surface instead of a slab's cross-section;
 * ``halo_depth=k`` widens the halo to the depth-k closure of the boundary
   coupling and replicates the rows of the depth ``< k`` ghosts (the
   ghost-row block), so ONE exchange feeds k chained SpMVs — the s-step
@@ -23,8 +27,7 @@ The builder here is **vectorised**: every step is a numpy array operation
 over all rows and entries at once, with no per-row Python loop, and it
 produces the same arrays, byte for byte, as the JAX package's builder
 (which walks the rows one by one and so takes minutes at the sizes the
-port runs on the card). 2-D process grids are a later slice of the
-port.
+port runs on the card).
 
 Shards are stacked on one device: every array carries a leading ``S`` axis
 and the solver bodies run over all shards at once (core/spmv.py).
@@ -88,6 +91,50 @@ def plane_partition(n_global: int, plane: int, n_shards: int) -> RowPartition:
     return RowPartition(n_global, tuple(int(z) * plane for z in zs))
 
 
+def default_grid(n_shards: int) -> tuple[int, int]:
+    """Most-square ``(rows, cols)`` factorization with ``rows <= cols``.
+
+    4 -> (2, 2), 8 -> (2, 4), 16 -> (4, 4), 32 -> (4, 8). Primes (and
+    shard counts below 4) have no nontrivial factorization and map to
+    ``(1, n_shards)`` — the 1-D layout.
+    """
+    n_shards = int(n_shards)
+    r = max(int(np.sqrt(n_shards)), 1)
+    while r > 1 and n_shards % r:
+        r -= 1
+    return (r, n_shards // r)
+
+
+def pencil_partition(p, grid: tuple[int, int]) -> tuple[np.ndarray, RowPartition]:
+    """Pencil (z-block x y-block) row ordering for an ``R x C`` process grid.
+
+    Returns ``(perm, part)``: ``perm[new] = old`` is the symmetric row
+    permutation that makes the flat shard ``s = i*C + j`` own the pencil
+    ``z_blocks[i] x y_blocks[j] x [0, nx)`` as one contiguous row block, and
+    ``part`` is the matching :class:`RowPartition`. Solving the permuted
+    system ``A[perm][:, perm] x' = b[perm]`` with ``partition_csr(...,
+    grid=grid, partition=part)`` gives per-dimension halos that scale with
+    the pencil *surface* (``O(N^2 / sqrt(S))`` per shard), not the slab
+    cross-section (``O(N^2)``).
+
+    ``p`` only needs ``nx``/``ny``/``nz`` (``PoissonProblem`` qualifies).
+    A grid larger than an axis leaves shards empty, which the partitioner
+    handles. Each pencil's ids come from one broadcast, in z, y, x order;
+    the pencils follow the flat shard order, as in the JAX package.
+    """
+    gr, gc = int(grid[0]), int(grid[1])
+    z_blocks = np.array_split(np.arange(p.nz, dtype=np.int64), gr)
+    y_blocks = np.array_split(np.arange(p.ny, dtype=np.int64), gc)
+    xs = np.arange(p.nx, dtype=np.int64)
+    parts = [
+        ((zb[:, None] * p.ny + yb[None, :])[:, :, None] * p.nx + xs).reshape(-1)
+        for zb in z_blocks for yb in y_blocks
+    ]
+    starts = np.cumsum([0] + [len(ids) for ids in parts])
+    return np.concatenate(parts), RowPartition(p.nx * p.ny * p.nz,
+                                               tuple(int(v) for v in starts))
+
+
 # ---------------------------------------------------------------------------
 # Halo plan
 # ---------------------------------------------------------------------------
@@ -128,6 +175,78 @@ class HaloPlan:
         if self.mode == "allgather":
             return self.n_own_pad * (self.n_shards - 1) * itemsize
         return sum(self.widths) * itemsize
+
+
+@dataclasses.dataclass(frozen=True)
+class GridPlan:
+    """Static halo-exchange description for a 2-D ``R x C`` process grid.
+
+    Flat shard ``s = i * C + j`` sits at grid position ``(i, j)``. Rows
+    stay block-contiguous over the flat shard order (so the padded vector
+    layout is the 1-D one); what changes is the neighbour structure:
+    ``shifts[k] = (di, dj)`` means shard ``(i, j)`` *receives* a buffer of
+    width ``widths[k]`` from shard ``(i + di, j + dj)``, zeros when either
+    index leaves the grid. Receive buffers concatenate after ``x_own`` in
+    shift order, as in :class:`HaloPlan` ring mode.
+
+    On a cluster each shift runs per dimension: a pure-column shift
+    ``(0, dj)`` is one point-to-point launch along the grid row, a pure-row
+    shift ``(di, 0)`` one along the grid column, and a corner shift chains
+    the two (the column hop first, then the row hop forwards the buffer):
+    ``hops(k)`` launches, each moving the buffer over one link. On one
+    card every shift is an index along the stacked shard axis; the counts
+    recorded are those of the cluster.
+    """
+
+    mode: str  # always "grid"
+    grid: tuple[int, int]  # (rows, cols) of the process grid
+    shifts: tuple[tuple[int, int], ...]  # (di, dj) receive-from deltas
+    widths: tuple[int, ...]
+    n_own_pad: int  # uniform padded rows per shard
+    n_shards: int
+
+    @property
+    def ext_len(self) -> int:
+        return self.n_own_pad + sum(self.widths)
+
+    def buf_offset(self, k: int) -> int:
+        """Offset of receive buffer ``k`` inside x_ext."""
+        return self.n_own_pad + sum(self.widths[:k])
+
+    def hops(self, k: int) -> int:
+        """Interconnect hops of shift ``k`` (1 pure-axis, 2 corner)."""
+        di, dj = self.shifts[k]
+        return int(di != 0) + int(dj != 0)
+
+    def perm_rows(self, k: int) -> tuple[tuple[int, int], ...]:
+        """(src, dst) grid-row pairs of shift k's row hop."""
+        di = self.shifts[k][0]
+        gr = self.grid[0]
+        return tuple((i, i - di) for i in range(gr) if 0 <= i - di < gr)
+
+    def perm_cols(self, k: int) -> tuple[tuple[int, int], ...]:
+        """(src, dst) grid-column pairs of shift k's column hop."""
+        dj = self.shifts[k][1]
+        gc = self.grid[1]
+        return tuple((j, j - dj) for j in range(gc) if 0 <= j - dj < gc)
+
+    @property
+    def n_launches(self) -> int:
+        """Point-to-point launches per exchange (corners count twice)."""
+        return sum(self.hops(k) for k in range(len(self.shifts)))
+
+    def dim_bytes_per_shard(self, itemsize: int = 8) -> tuple[int, int]:
+        """(rows_bytes, cols_bytes) each shard moves per exchange. A corner
+        buffer crosses both dimensions and counts in both entries; the two
+        sum to :meth:`collective_bytes_per_shard`."""
+        rows_b = sum(w * itemsize for (di, _), w in zip(self.shifts, self.widths) if di)
+        cols_b = sum(w * itemsize for (_, dj), w in zip(self.shifts, self.widths) if dj)
+        return rows_b, cols_b
+
+    def collective_bytes_per_shard(self, itemsize: int = 8) -> int:
+        """Bytes each shard moves per exchange (hop-weighted: a corner
+        buffer crosses two links)."""
+        return sum(self.hops(k) * w * itemsize for k, w in enumerate(self.widths))
 
 
 # ---------------------------------------------------------------------------
@@ -398,7 +517,7 @@ class DistMat:
     col_ext: torch.Tensor
     bnd_rows: torch.Tensor
     send_sel: torch.Tensor
-    plan: HaloPlan
+    plan: HaloPlan | GridPlan
     n_global: int
     row_starts: tuple[int, ...]
     n_bnd: tuple[int, ...] = ()
@@ -463,7 +582,7 @@ class DistMat:
     @functools.cached_property
     def flat_send(self) -> torch.Tensor:
         """(S*W,) int32 ids into the flattened stacked x_own of every
-        shard's send selection (ring mode)."""
+        shard's send selection (ring and grid modes)."""
         S, W = self.send_sel.shape
         offs = torch.arange(S, dtype=torch.int32, device=self.device) * self.n_own_pad
         return (self.send_sel + offs[:, None]).reshape(-1)
@@ -525,12 +644,6 @@ class DistMat:
 # ---------------------------------------------------------------------------
 # Interior packers: the flat interior entries -> one InteriorBlock
 # ---------------------------------------------------------------------------
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md, {item})"
-    )
 
 
 def _rank_in_groups(keys: np.ndarray) -> np.ndarray:
@@ -746,16 +859,25 @@ def partition_csr(
     ``halo_depth=1`` gives the historical arrays bit for bit (and 0-sized
     ghost arrays).
 
-    Only ``grid=None`` (or ``(1, N)``, the same layout) is ported; the 2-D
-    grid raises ``NotImplementedError``.
+    ``grid=(R, C)`` (with ``R * C == n_shards``) plans the halo exchange
+    for a 2-D process grid instead (:class:`GridPlan`): the shifts become
+    per-dimension ``(di, dj)`` deltas, and the ring criterion applies to
+    ``max(|di|, |dj|)``. Rows stay block-contiguous over the flat shard
+    order, so ``grid=(1, N)`` builds the 1-D layout, array for array. Pair
+    with :func:`pencil_partition` to make a shard's halo scale with its
+    pencil's surface.
     """
     if fmt not in FORMATS + ("auto",):
         raise ValueError(f"unknown interior format {fmt!r}; want {FORMATS} or 'auto'")
-    if grid is not None and int(grid[0]) > 1:
-        _not_ported("the 2-D process grid", "queue 1, item 10")
     halo_depth = int(halo_depth)
     if halo_depth < 1:
         raise ValueError(f"halo_depth must be >= 1, got {halo_depth}")
+    if grid is not None:
+        gr, gc = int(grid[0]), int(grid[1])
+        if gr * gc != n_shards:
+            raise ValueError(f"grid {gr}x{gc} does not cover n_shards={n_shards}")
+        if gr == 1:
+            grid = None  # 1 x N is the 1-D layout; build it identically
     a = a_csr.tocsr()
     n = a.shape[0]
     part = partition or balanced_partition(n, n_shards)
@@ -791,30 +913,48 @@ def partition_csr(
     u_shard = upair // n
     u_col = upair % n
     u_owner = part.owner_of(u_col)
-    d = u_owner - u_shard
-    seen = np.unique(d)
     reach = max_ring * halo_depth
-    mode = "ring" if all(abs(int(v)) <= reach for v in seen) else "allgather"
+    if grid is None:
+        d = u_owner - u_shard
+        seen = np.unique(d)
+        seen_shift = [int(v) for v in seen]
+        mode = "ring" if all(abs(v) <= reach for v in seen_shift) else "allgather"
+        shifts = tuple(sorted(seen_shift, key=lambda v: (abs(v), v)))
+    else:
+        # receive-from deltas on the grid: shard (i, j) takes the column
+        # from the shard at (i + di, j + dj); one int key per pair, in the
+        # pair's lexicographic order (|dj| < gc)
+        di = u_owner // gc - u_shard // gc
+        dj = u_owner % gc - u_shard % gc
+        d = di * (2 * gc) + dj
+        seen, first = np.unique(d, return_index=True)
+        seen_shift = [(int(di[i]), int(dj[i])) for i in first]
+        near = all(max(abs(a), abs(b)) <= reach for a, b in seen_shift)
+        mode = "grid" if near else "allgather"
+        shifts = tuple(sorted(seen_shift, key=lambda t: (max(abs(t[0]), abs(t[1])), t)))
     if force_allgather:
         mode = "allgather"
-    shifts = tuple(sorted((int(v) for v in seen), key=lambda v: (abs(v), v)))
 
-    if mode == "ring":
+    if mode != "allgather":
         # shift index of every (shard, column) pair: seen is sorted, so
         # searchsorted finds d in it; k_of_seen maps that to shift order
-        k_of_seen = np.asarray([shifts.index(int(v)) for v in seen], np.int64)
+        k_of_seen = np.asarray([shifts.index(v) for v in seen_shift], np.int64)
         u_k = k_of_seen[np.searchsorted(seen, d)]
         # within a shard the owner grows with the column, so (shard, owner)
-        # groups are contiguous runs in upair order: the rank inside the run
-        # is the position in the sorted receive list
+        # groups — one per shift — are contiguous runs in upair order: the
+        # rank inside the run is the position in the sorted receive list
         rank = _rank_in_groups(u_shard * S + u_owner)
         cnt = np.zeros((S, len(shifts)), np.int64)
         np.add.at(cnt, (u_shard, u_k), 1)
         widths = tuple(int(w) for w in cnt.max(axis=0)) if S else ()
-        plan = HaloPlan("ring", shifts, widths, R, S)
+        if grid is None:
+            plan = HaloPlan("ring", shifts, widths, R, S)
+        else:
+            plan = GridPlan("grid", (gr, gc), shifts, widths, R, S)
         off = np.concatenate([[0], np.cumsum(widths, dtype=np.int64)])
         u_pos = R + off[u_k] + rank
         # sender (the owner) packs each receiver's list in its sorted order
+        # (on the grid the chained hops deliver the buffer unchanged)
         W = sum(widths)
         send_sel = np.zeros((S, max(W, 1)), np.int32)
         send_sel[u_owner, off[u_k] + rank] = (u_col - starts[u_owner]).astype(np.int32)
@@ -864,7 +1004,7 @@ def partition_csr(
 
     # --- ghost-row block: the rows of the depth < k ghosts (none at depth 1,
     # none in allgather mode) ------------------------------------------------
-    deep = np.flatnonzero(u_depth < halo_depth) if mode == "ring" else u_depth[:0]
+    deep = np.flatnonzero(u_depth < halo_depth) if mode != "allgather" else u_depth[:0]
     ghost = _ghost_rows(deep, upair, u_pos, indptr, indices, vals, starts, n, S,
                         plan.ext_len, dtype)
 
@@ -1125,6 +1265,7 @@ def distmat_from_numpy(
     ghost_col=None,
     ghost_pos=None,
     halo_depth: int = 1,
+    grid=None,
     device="cpu",
 ) -> DistMat:
     """A :class:`DistMat` from another builder's arrays (numpy) and plan
@@ -1134,7 +1275,9 @@ def distmat_from_numpy(
     that of ``blocks``), a :class:`HYBBlock` when the ``tail_*`` arrays are
     given beside ``data``/``col`` (``n_tail``), else an :class:`ELLBlock`.
     A deep-halo partition carries its ghost-row block (``ghost_data``,
-    ``ghost_col``, ``ghost_pos``) and ``halo_depth``."""
+    ``ghost_col``, ``ghost_pos``) and ``halo_depth``. ``mode="grid"``
+    builds a :class:`GridPlan` over ``grid = (R, C)``, its ``shifts`` the
+    ``(di, dj)`` pairs."""
     t = lambda a: None if a is None else _to_torch(np.array(a), device)  # a copy
     if blocks is not None:
         _, _, br, bc = np.shape(blocks)
@@ -1146,14 +1289,21 @@ def distmat_from_numpy(
                             n_tail=tuple(int(v) for v in n_tail))
     else:
         interior = ELLBlock(data=t(data), col=t(col))
+    widths = tuple(int(w) for w in widths)
+    if str(mode) == "grid":
+        plan = GridPlan("grid", (int(grid[0]), int(grid[1])),
+                        tuple((int(a), int(b)) for a, b in shifts), widths,
+                        int(n_own_pad), int(n_shards))
+    else:
+        plan = HaloPlan(str(mode), tuple(int(v) for v in shifts), widths,
+                        int(n_own_pad), int(n_shards))
     return DistMat(
         interior=interior,
         data_ext=t(data_ext),
         col_ext=t(col_ext),
         bnd_rows=t(bnd_rows),
         send_sel=t(send_sel),
-        plan=HaloPlan(str(mode), tuple(int(s) for s in shifts),
-                      tuple(int(w) for w in widths), int(n_own_pad), int(n_shards)),
+        plan=plan,
         n_global=int(n_global),
         row_starts=tuple(int(r) for r in row_starts),
         n_bnd=tuple(int(b) for b in n_bnd),
@@ -1162,6 +1312,27 @@ def distmat_from_numpy(
         ghost_pos=t(ghost_pos),
         halo_depth=int(halo_depth),
     )
+
+
+def expand_boundary(mat: DistMat) -> tuple[np.ndarray, np.ndarray]:
+    """Full-row ``(S, R, k_ext)`` view of the compact boundary block (host).
+
+    Inverse of the boundary-row compaction: each shard's compact
+    ``(B, k_ext)`` ghost-entry rows go back to their ``bnd_rows`` positions,
+    for all shards at once (padding rows past ``n_bnd[s]`` are left out).
+    """
+    S, R = mat.n_shards, mat.n_own_pad
+    de = mat.data_ext.detach().cpu().numpy()
+    ce = mat.col_ext.detach().cpu().numpy()
+    rows = mat.bnd_rows.detach().cpu().numpy().astype(np.int64)
+    B, k = de.shape[1], de.shape[2]
+    full_d = np.zeros((S, R, k), de.dtype)
+    full_c = np.zeros((S, R, k), ce.dtype)
+    nb = np.asarray(mat.n_bnd if mat.n_bnd else [0] * S, np.int64)
+    s_idx, j_idx = np.nonzero(np.arange(B)[None, :] < nb[:, None])
+    full_d[s_idx, rows[s_idx, j_idx]] = de[s_idx, j_idx]
+    full_c[s_idx, rows[s_idx, j_idx]] = ce[s_idx, j_idx]
+    return full_d, full_c
 
 
 # ---------------------------------------------------------------------------

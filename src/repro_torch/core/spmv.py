@@ -1,11 +1,14 @@
 """Distributed SpMV + halo exchange over the stacked shard layout.
 
-Port of the 1-D ring path of ``repro.core.spmv``. Every shard lives
-on the same device: vectors are ``(S, R)`` stacks, the matrix a stacked
+Port of ``repro.core.spmv``. Every shard lives on the same device:
+vectors are ``(S, R)`` stacks, the matrix a stacked
 :class:`~repro_torch.core.partition.DistMat`, and each function is written
 once over all shards (no Python loop over shards). The ring ``ppermute``
-becomes a shift along the shard axis with zeros at the ring's edges; the
-all-gather becomes the flattened ``(S*R,)`` stack, which every shard reads.
+becomes a shift along the shard axis with zeros at the ring's edges; on a
+2-D process grid (:class:`~repro_torch.core.partition.GridPlan`) the stack
+is viewed as ``(R, C, ...)`` and shifted in both grid dimensions, with
+zeros where either index leaves the grid; the all-gather becomes the
+flattened ``(S*R,)`` stack, which every shard reads.
 
 Each shard's rows are split into an interior block (own columns) and a
 compact boundary block (ghost-touching rows' external entries only).
@@ -42,7 +45,7 @@ import contextlib
 
 import torch
 
-from repro_torch.core.partition import BCSRBlock, DistMat, ELLBlock, HaloPlan, HYBBlock
+from repro_torch.core.partition import BCSRBlock, DistMat, ELLBlock, HYBBlock
 from repro_torch.energy import trace
 from repro_torch.energy.accounting import OpCounts
 from repro_torch.kernels import dispatch as kd
@@ -179,17 +182,17 @@ def boundary_matvec(
     """Compact boundary-block matvec: ``yb[s, j] = sum_k data_ext[s,j,k] *
     x_ext[s, col_ext[s,j,k]]`` -> (S, B).
 
-    ``x_ext`` is the stacked ``(S, ext_len)`` extended vector (ring mode) or
-    the gathered ``(S*R,)`` vector every shard reads (allgather mode).
-    ``src_elems`` is the number of distinct gatherable source elements per
-    shard (the halo length for the ring layouts); the default bounds it by
-    the entry count, as in the JAX package.
+    ``x_ext`` is the stacked ``(S, ext_len)`` extended vector (ring and
+    grid modes) or the gathered ``(S*R,)`` vector every shard reads
+    (allgather mode). ``src_elems`` is the number of distinct gatherable
+    source elements per shard (the halo length for the ring layouts); the
+    default bounds it by the entry count, as in the JAX package.
     """
     data_bnd = mat.data_ext
     S, B, k_ext = data_bnd.shape
     b = data_bnd.element_size()
     per_shard = B * k_ext
-    ring = mat.plan.mode == "ring"
+    ring = mat.plan.mode != "allgather"
     r = _nrhs(x_ext, 2 if ring else 1)
     nr = max(r, 1)
     ext_len = x_ext.shape[1] if ring else x_ext.shape[0]
@@ -223,17 +226,32 @@ def _scatter_boundary(mat: DistMat, y: torch.Tensor, yb: torch.Tensor) -> torch.
 # ---------------------------------------------------------------------------
 
 
+def _span(d: int, n: int) -> tuple[slice, slice]:
+    """``(dst, src)`` slices of a shift by ``d`` along an axis of length
+    ``n``: position ``i`` receives from ``i + d`` where that lies inside
+    (both empty when ``|d| >= n``)."""
+    lo = max(0, -d)
+    hi = max(lo, n - max(0, d))
+    return slice(lo, hi), slice(lo + d, hi + d)
+
+
 def _halo_exchange(x: torch.Tensor, mat: DistMat) -> torch.Tensor:
-    """Ring halo exchange body (records counts in the *caller's* region).
+    """Ring/grid halo exchange body (records counts in the *caller's* region).
 
     Every shard's send selection is gathered at once; receive buffer ``k``
     of shard ``i`` is the selection shard ``i + shifts[k]`` sent, i.e. the
     gathered block shifted by ``shifts[k]`` along the shard axis, with zeros
-    where ``i + shifts[k]`` falls off the ring. Returns ``(S, sum(widths))``
+    where ``i + shifts[k]`` falls off the ring. On a grid the gathered block
+    is viewed as ``(R, C, ...)``: buffer ``k`` of shard ``(i, j)`` comes
+    from ``(i + di, j + dj)``, zero when either index leaves its own
+    dimension (a shift never wraps into the next grid row). Records
+    ``GridPlan.n_launches`` collectives (a corner shift chains two hops on a
+    cluster) and the hop-weighted bytes. Returns ``(S, sum(widths))``
     (``(S, sum(widths), r)`` for column blocks: r-wide rows, so the payload
     scales with ``r`` over the same number of launches).
     """
-    plan: HaloPlan = mat.plan
+    plan = mat.plan
+    grid = plan.mode == "grid"
     r = _nrhs(x)
     trace.record_op(
         "halo_exchange",
@@ -241,29 +259,30 @@ def _halo_exchange(x: torch.Tensor, mat: DistMat) -> torch.Tensor:
             ici_bytes=float(
                 plan.collective_bytes_per_shard(x.element_size() * max(r, 1))
             ),
-            n_collectives=float(len(plan.shifts)),
+            n_collectives=float(plan.n_launches if grid else len(plan.shifts)),
         ),
     )
     S = x.shape[0]
     W = sum(plan.widths)
+    rest = tuple(x.shape[2:])
     if not W:
-        return x.new_zeros((S, 0) + tuple(x.shape[2:]))
-    sent = _gather(x, mat.flat_send, (S, mat.send_sel.shape[1]), r)
-    halo = x.new_zeros((S, W) + tuple(x.shape[2:]))
+        return x.new_zeros((S, 0) + rest)
+    # a ring is the 1 x S grid, its shift d the grid shift (0, d)
+    gr, gc = plan.grid if grid else (1, S)
+    shifts = plan.shifts if grid else [(0, d) for d in plan.shifts]
+    sent = _gather(x, mat.flat_send, (gr, gc, mat.send_sel.shape[1]), r)
+    halo = x.new_zeros((S, W) + rest)
+    halo_g = halo.view((gr, gc, W) + rest)
     off = 0
-    for d, w in zip(plan.shifts, plan.widths):
-        if abs(d) < S:
-            src = sent[:, off : off + w]
-            if d >= 0:
-                halo[: S - d, off : off + w] = src[d:]
-            else:
-                halo[-d:, off : off + w] = src[: S + d]
+    for (di, dj), w in zip(shifts, plan.widths):
+        (ri, si), (rj, sj) = _span(di, gr), _span(dj, gc)
+        halo_g[ri, rj, off:off + w] = sent[si, sj, off:off + w]
         off += w
     return halo
 
 
 def halo_exchange(x: torch.Tensor, mat: DistMat) -> torch.Tensor:
-    """Ring halo exchange attributed to the ``"halo"`` region (the
+    """Ring/grid halo exchange attributed to the ``"halo"`` region (the
     serialized path); the overlapped SpMV calls :func:`_halo_exchange`
     directly so the exchange lands in its ``"overlap"`` region."""
     with trace.region("halo"):
@@ -271,10 +290,10 @@ def halo_exchange(x: torch.Tensor, mat: DistMat) -> torch.Tensor:
 
 
 def gather_ext(mat: DistMat, x: torch.Tensor) -> torch.Tensor:
-    """The external-vector buffer: ``(S, ext_len)`` in ring mode, the
-    gathered ``(S*R,)`` vector in allgather mode (``(S, ext_len, r)`` and
-    ``(S*R, r)`` for column blocks)."""
-    if mat.plan.mode == "ring":
+    """The external-vector buffer: ``(S, ext_len)`` in ring and grid modes,
+    the gathered ``(S*R,)`` vector in allgather mode (``(S, ext_len, r)``
+    and ``(S*R, r)`` for column blocks)."""
+    if mat.plan.mode != "allgather":
         return torch.cat([x, halo_exchange(x, mat)], dim=1)
     # allgather mode: padded-global layout owner*R + local — exactly the
     # flattened stack of the padded shard vectors
@@ -317,7 +336,7 @@ def spmv_shard(mat: DistMat, x: torch.Tensor, *, overlap: bool | None = None) ->
     """``y = A @ x`` for the stacked ``(S, R)`` vector ``x`` (or the SpMM
     for an ``(S, R, r)`` block), via the interior/boundary row-block split.
 
-    ``overlap=True`` (ring layouts with a real exchange): the halo
+    ``overlap=True`` (ring/grid layouts with a real exchange): the halo
     exchange, the interior matvec and the boundary scatter-add, all in the
     ``"overlap"`` energy region. ``overlap=False`` (and the allgather /
     single-shard layouts): gather ``x_ext`` fully (region ``"halo"``), then
@@ -325,7 +344,7 @@ def spmv_shard(mat: DistMat, x: torch.Tensor, *, overlap: bool | None = None) ->
     """
     if overlap is None:
         overlap = _OVERLAP_DEFAULT
-    ring = mat.plan.mode == "ring" and len(mat.plan.shifts) > 0
+    ring = mat.plan.mode != "allgather" and len(mat.plan.shifts) > 0
     if overlap and ring:
         with trace.region(trace.OVERLAP):
             halo = _halo_exchange(x, mat)
@@ -348,6 +367,13 @@ def make_spmv(mat: DistMat, *, overlap: bool = True):
         return spmv_shard(mat, x, overlap=overlap)
 
     return spmv
+
+
+def matrix_grid(mat: DistMat) -> tuple[int, int] | None:
+    """The ``(R, C)`` process grid ``mat``'s plan spans (its all-reduces
+    stage over it), or None on a flat shard axis — the counterpart of the
+    JAX package's ``matrix_axis``."""
+    return mat.plan.grid if mat.plan.mode == "grid" else None
 
 
 # ---------------------------------------------------------------------------
@@ -398,9 +424,9 @@ def matrix_powers(mat: DistMat, p: torch.Tensor, s: int, *,
     one ``"overlap"`` region; otherwise the exchange goes to ``"halo"`` and
     the products to the caller's region, as in the JAX package.
     """
-    if mat.plan.mode != "ring":
+    if mat.plan.mode == "allgather":
         raise ValueError(
-            "matrix_powers needs a ring halo plan (allgather layouts "
+            "matrix_powers needs a ring/grid halo plan (allgather layouts "
             "re-gather the full vector every application)"
         )
     has_halo = len(mat.plan.shifts) > 0

@@ -105,8 +105,14 @@ def test_pad_unpad_and_distmat_from_numpy():
 
 def test_unported_layouts_raise():
     a = _matrix("7pt", 12)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tp.partition_csr(a, 4, grid=(2, 2))
+    # the 2-D process grid is ported: a 2 x 2 grid plans per-dimension
+    # (di, dj) halos, equal to the reference's plan
+    mat = tp.partition_csr(a, 4, grid=(2, 2), dtype=np.float32)
+    ref = jp.partition_csr(a, 4, grid=(2, 2), dtype=np.float32)
+    assert mat.plan.mode == "grid" and mat.plan.grid == (2, 2)
+    assert (mat.plan.shifts, mat.plan.widths) == (ref.plan.shifts, ref.plan.widths)
+    with pytest.raises(ValueError, match="does not cover"):
+        tp.partition_csr(a, 4, grid=(2, 3))
     # the interior formats are ported: HYB partitions like the others
     assert tp.partition_csr(a, 4, fmt="hyb").fmt == "hyb"
     # deep halos are ported: halo_depth=2 builds two-deep ghost zones

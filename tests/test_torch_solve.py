@@ -312,9 +312,21 @@ def test_config_surface_matches_reference():
     args = parse_args(cfg.to_argv() + ["--side", "9"])
     assert api.SolverConfig.from_args(args) == cfg
     assert api.ProblemSpec.from_args(args) == api.ProblemSpec(side=9)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    # the 2-D process grid is ported: a 2 x 2 grid solve converges alone
+    # (no Ginkgo leg), and a grid that does not cover the shards is refused
+    rep = api.solve(api.ProblemSpec(side=6, shards=4), api.SolverConfig(grid="2x2"),
+                    device="cpu", verbose=False)
+    assert set(rep.summary) == {"BCMGX-analog"} and rep.ledger["grid"] == [2, 2]
+    assert rep.summary["BCMGX-analog"]["relres"] <= 1e-8
+    with pytest.raises(api.ConfigError, match="covers 4 shards; running with 1"):
         api.solve(api.ProblemSpec(side=6), api.SolverConfig(grid="2x2"), device="cpu",
                   verbose=False)
+    # autotune, telemetry and profiles are not ported yet
+    for kw, item in ((dict(config=api.SolverConfig(autotune=True)), "item 13"),
+                     (dict(config=api.SolverConfig(telemetry=True)), "item 14"),
+                     (dict(profile="trace.json"), "item 14")):
+        with pytest.raises(NotImplementedError, match=item):
+            api.solve(api.ProblemSpec(side=6), device="cpu", verbose=False, **kw)
     # AMG is ported: the BCMGX-analog leg alone, with no Ginkgo leg
     rep = api.solve(api.ProblemSpec(side=6), api.SolverConfig(amg=True), device="cpu",
                     verbose=False)
