@@ -60,6 +60,22 @@ CUDA card with sm_90a). It
      bits (the HYB tail is added without atomics);
    * poisson7 at side 256 with ``--format bcsr --block 4``: hs within one
      iteration of the ELL count of step 4;
+7a. the energy-aware tuner, ``api.solve`` with ``autotune=True`` on the main
+   path's session, its cache in a directory made under ``build/`` and
+   removed after: (a) objective energy, budget 3 — not cached, 108
+   candidates, DEFAULT among the trials and never scoring below the
+   winner, each executed trial 8 iterations unless it converged, the
+   winner within 1 iteration of its variant's ELL count, every trial's
+   label, iterations and predicted and modeled time and energy, the prune
+   and trial seconds and the partitions made, and the winner's card wall
+   per iteration beside the 1-D hs's and the tuner's modeled one; (b) the
+   same call, a cache hit with no trial and no partition; (c) ``nrhs=8``,
+   budget 2 — 36 candidates, block-HS, the block path's iterations; (d)
+   poisson7 at side 128 on 8 shards, objective time — 432 candidates, the
+   best-predicted grid (2 x 4) and s-step candidates printed, the winner's
+   solve (a grid winner's ledger carries the grid and its halo bytes).
+   Each with relres, the scipy residual and the launches of the trials
+   plus the winner's solves against their formulas;
 8. s-step CG (communication-avoiding): the three s-step kernels held
    against their plain versions at the path's shape (s = 2 and 4) and at
    ragged ones, in float64 and float32, and timed; the matrix-powers SpMV
@@ -117,12 +133,14 @@ CUDA card with sm_90a). It
 11. profiles 20 iterations of hs, fcg, pipecg, block-HS and s-step (s = 2)
    with ``torch.profiler`` — and hs on BCSR (poisson7, boneS10), block-HS
    on BCSR (boneS10), hs on HYB (G3_circuit), matrix-free hs (poisson7),
-   and AMG hs (side 256) and the AmgX analog's hs (side 128): device time
-   per kernel (and per torch op for AMG), the device's busy share of the
-   wall time, and the host's syncs and copies per iteration (AMG: one
-   sync, the loop test, and no host-to-device copy);
+   and AMG hs (side 256): device time per kernel (and per torch op for
+   AMG), the device's busy share of the wall time, and the host's syncs
+   and copies per iteration (AMG: one sync, the loop test, and no
+   host-to-device copy). The AmgX analog's profile (side 128) was cut
+   when the tuner phase came in, to keep the run near half of the chip
+   tool's limit;
 12. prints one JSON line describing every kernel (``launches`` summed over
-   the solve paths and the Jacobi sweeps), then, last, ``{"ok": true,
+   the solve paths, the tuner's trials and the Jacobi sweeps), then, last, ``{"ok": true,
    "device": {...}}``.
 
 Any failed check raises, and the script exits non-zero without the last
@@ -155,6 +173,9 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float64": 34e12, "float32": 67e12}  # outside the tensor cores
 DOT_TOL = {"float64": 1e-13, "float32": 1e-5}
 ANISO = (1.0, 2.5, 7.0)  # the anisotropic 7pt stencil of the stencil kernel phase
+TUNE_BUDGET = (3, 2)  # the tuner's trial budget: single right-hand side, nrhs = NRHS
+TUNE_WIDE = (128, 8)  # side and shards of the tuner's 8-shard step (grid, s-step axes)
+TUNE_ITERS = 8  # iterations of each trial (the tuner's default trial_iters)
 
 
 T_START = time.perf_counter()
@@ -872,21 +893,28 @@ def sstep_expected(s):
     return expected
 
 
+# the kernels fcg and pipecg launch per loop iteration
+LOOP_KERNELS = {"fcg": {"fused_dots_n": 1, "fused_axpy2": 2},
+                "pipecg": {"fused_dots_n": 1, "fused_axpy2": 3}}
+
+
+def loop_expected(variant):
+    """Launches of one fcg or pipecg solve, run 1 + rep times: the loop
+    runs iters - 1 times (the pre-loop step is iteration 1)."""
+    return lambda it, rep: {
+        name: (f"(1 + {rep}) x {k} x ({it} - 1)", (1 + rep) * k * (it - 1))
+        for name, k in LOOP_KERNELS[variant].items()}
+
+
 def later_paths(api):
     """``(tag, config, expected launches)`` of the paths after hs. fcg and
     pipecg run their loop iters - 1 times (the pre-loop step is iteration
     1); block-HS launches 1 setup Gram plus 2 Grams, 1 update2 and 1 update
     per iteration. Each solve runs 1 + repeats times."""
-    def loop(per_iter):
-        return lambda it, rep: {
-            name: (f"(1 + {rep}) x {k} x ({it} - 1)", (1 + rep) * k * (it - 1))
-            for name, k in per_iter.items()}
-
     return [
-        ("fcg", api.SolverConfig(variant="fcg", maxiter=MAXITER),
-         loop({"fused_dots_n": 1, "fused_axpy2": 2})),
+        ("fcg", api.SolverConfig(variant="fcg", maxiter=MAXITER), loop_expected("fcg")),
         ("pipecg", api.SolverConfig(variant="pipecg", maxiter=MAXITER),
-         loop({"fused_dots_n": 1, "fused_axpy2": 3})),
+         loop_expected("pipecg")),
         ("block", api.SolverConfig(nrhs=NRHS, maxiter=MAXITER), lambda it, rep: {
             "block_gram": (f"(1 + {rep}) x (1 + 2 x {it})", (1 + rep) * (1 + 2 * it)),
             "block_update2": (f"(1 + {rep}) x {it}", (1 + rep) * it),
@@ -1631,7 +1659,8 @@ def amgx_paths(api, dev, launches):
     it = rep.summary["AmgX-analog"]["iters"]
     print(f"side {AMG_SIDE_AMGX}: hs {it_hs}, AmgX analog {it} iterations", flush=True)
     check(it < it_hs / 2, f"{tag}: {it} iterations, not fewer than half of hs's {it_hs}")
-    return sess
+    api.SESSIONS.pop(sess.key, None)
+    sess.close()  # frees the card's copy before the profiles
 
 
 def matcher_phase(dev, a_main):
@@ -1763,6 +1792,222 @@ def profile_amg(sess, dev, pre, variant, iters=20):
                          iters, variant, torch_ops=True)
     check(host["cudaStreamSynchronize"] <= 1.0 and host["htod"] == 0,
           f"amg {variant}: {host} per iteration, not one sync and no host-to-device copy")
+
+
+def solve_expected(variant, fmt, nrhs=1, s=2):
+    """Launches of one solve of ``variant`` (block-HS when ``nrhs > 1``) on a
+    ``fmt`` interior with ``it`` iterations, run ``1 + rep`` times: its
+    vector kernels as :func:`hs_expected`, :func:`loop_expected`,
+    :func:`sstep_expected` and :func:`block_expected` say, and on BCSR one
+    product per SpMV: hs and fcg 1 + it (fcg's pre-loop step has two),
+    pipecg it + 2 (three before its loop), s-step 1 + s per block."""
+    if nrhs > 1:
+        return block_expected(fmt)
+    if variant == "hs":
+        return hs_expected(fmt)
+    vec = sstep_expected(s) if variant == "sstep" else loop_expected(variant)
+    if fmt != "bcsr":
+        return vec
+
+    def expected(it, rep):
+        want = vec(it, rep)
+        if variant == "sstep":
+            f, v = f"1 + {s} x max({it} / {s}, 1)", 1 + s * max(it // s, 1)
+        else:
+            k = 1 if variant == "fcg" else 2
+            f, v = f"{it} + {k}", it + k
+        want["bcsr_spmv"] = (f"(1 + {rep}) x ({f})", (1 + rep) * v)
+        return want
+    return expected
+
+
+def tuned_expected(sess, nrhs=1):
+    """Launches of one tuned ``api.solve`` through ``sess``: each executed
+    trial of ``sess.tune`` (one solve of its candidate at its iterations),
+    then the winner's solve, run 1 + rep times, or rep times when the
+    session's handle for it was warm already (an earlier path of the
+    session solved the same configuration). Made before the solve, read
+    after it."""
+    warm = {k for k, h in sess.handles.items() if h.warmed}
+
+    def expected(it, rep):
+        if not {k for k, h in sess.handles.items() if h.warmed} - warm:
+            rep -= 1  # no warm-up solve ran: "1 + (rep - 1)"
+        tune = sess.tune
+        trials = {}
+        for t in tune.trials:
+            if t.executed:
+                c = t.candidate
+                for name, (_, v) in solve_expected(c.variant, c.fmt, nrhs, c.s)(
+                        t.iters_trial, 0).items():
+                    trials[name] = trials.get(name, 0) + v
+        ch = tune.chosen
+        want = solve_expected(ch.variant, ch.fmt, nrhs, ch.s)(it, rep)
+        for name in set(want) | set(trials):
+            f, v = want.get(name, ("0", 0))
+            want[name] = (f"trials {trials.get(name, 0)} + {f}", trials.get(name, 0) + v)
+        return want
+    return expected
+
+
+def trial_iters_expected(c, iters=TUNE_ITERS) -> int:
+    """Iterations a trial that does not converge runs: ``iters``, or for
+    s-step the whole blocks that reach it."""
+    return -(-iters // c.s) * c.s if c.variant == "sstep" else iters
+
+
+def tune_report(tag, sess, rep, t_phase, parts0):
+    """Print and check one tuned ``api.solve``'s decision: each trial's
+    label, iterations and predicted and modeled time and energy; the prune
+    and trial seconds, the phase's, the partitions made; DEFAULT among the
+    trials and never scoring better than the winner; every executed trial
+    ran its iterations unless it converged. Returns the TuneResult."""
+    from repro_torch.autotune import DEFAULT
+
+    tune = sess.tune
+    led = rep.ledger["autotune"]
+    check(led == tune.ledger_section(), f"{tag}: ledger autotune section")
+    for t in tune.trials:
+        c = t.candidate
+        print(f"{tag} trial {c.label:28s} executed={t.executed!s:5} iters_trial={t.iters_trial} "
+              f"relres={t.relres_trial:.3e} iters_est={t.iters_est} predicted "
+              f"{t.predicted_time_s:.6e} s {t.predicted_energy_j:.6e} J, modeled "
+              f"{t.measured_time_s:.6e} s {t.measured_energy_j:.6e} J, score {t.score:.6e}",
+              flush=True)
+        if t.executed and t.relres_trial > 1e-8:
+            want = trial_iters_expected(c)
+            check(t.iters_trial == want, f"{tag}: trial {c.label} ran {t.iters_trial}, not {want}")
+    print(f"{tag}: objective={tune.objective} chosen={tune.chosen.label} cached={tune.cached} "
+          f"space={tune.candidates_total} pruned={tune.candidates_pruned} "
+          f"trialed={tune.candidates_trialed}; prune {tune.prune_s:.2f} s, trials "
+          f"{tune.trial_s:.2f} s, phase {time.perf_counter() - t_phase:.2f} s, partitions made "
+          f"{sess.partitions - parts0} (session {sess.stats()})", flush=True)
+    if not tune.cached:
+        by_cand = {t.candidate: t for t in tune.trials}
+        check(DEFAULT in by_cand, f"{tag}: DEFAULT not among the trials")
+        check(by_cand[tune.chosen].score <= by_cand[DEFAULT].score,
+              f"{tag}: the winner scores above DEFAULT")
+        check(tune.trials[0].candidate == tune.chosen, f"{tag}: trials not best first")
+    return tune
+
+
+def autotune_phase(api, spec, sess, dev, launches, ell, block_iters, wide=TUNE_WIDE):
+    """The energy-aware tuner through ``api.solve(autotune=True)`` on the
+    main path's session, with a cache file in a directory made here and
+    removed after (a stale cache cannot turn the first call into a hit):
+
+    a. objective energy, budget TUNE_BUDGET[0]: not cached, 108 candidates;
+       the winner within 1 iteration of its variant's 1-D ELL count
+       (``ell[variant] = (iters, wall_s)``), its wall per iteration beside
+       the 1-D hs's and the tuner's modeled time per iteration;
+    b. the same call: cached, no trial, no new partition, the same winner;
+    c. ``nrhs = NRHS``, budget TUNE_BUDGET[1]: 36 candidates, block-HS, the
+       winner within 1 iteration of the block path's ``block_iters``;
+    d. poisson7 at side ``wide[0]`` on ``wide[1]`` shards, objective time:
+       432 candidates, the grid and s-step candidates priced (the best of
+       each printed), the winner's solve (a grid winner's ledger carries
+       the grid and its halo bytes); the session is closed after.
+
+    Each solve goes through :func:`solve_path` (relres, scipy residual,
+    launches of the trials plus the winner's solves)."""
+    import math
+    import shutil
+    import tempfile
+
+    from repro_torch.autotune import enumerate_space, interior_stats
+    from repro_torch.autotune.prune import format_stored_bytes, predict
+    from repro_torch.core.partition import default_grid
+    from repro_torch.energy.accounting import CostModel
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="autotune-", dir=os.path.join(ROOT, "build"))
+    try:
+        cache = os.path.join(tmp, "cache.json")
+        cfg = api.SolverConfig(autotune=True, tune_budget=TUNE_BUDGET[0], tune_cache=cache,
+                               maxiter=MAXITER)
+        chosen = None
+        for step in ("a", "b"):
+            tag = f"tune-{step}"
+            t0, parts0 = time.perf_counter(), sess.partitions
+            rep = solve_path(tag, api, spec, cfg, sess, launches, tuned_expected(sess))
+            tune = tune_report(tag, sess, rep, t0, parts0)
+            ch = tune.chosen
+            s = rep.summary["BCMGX-analog"]
+            it1, wall1 = ell[ch.variant]
+            t_win = next((t for t in tune.trials if t.candidate == ch), None)
+            modeled = (f"{1e3 * t_win.measured_time_s / t_win.iters_est:.6f} ms/iter"
+                       if t_win else "no trial (cached)")
+            print(f"{tag}: winner {ch.label} iters {s['iters']} (1-D ELL {ch.variant} {it1}), "
+                  f"card {1e3 * s['wall_s'] / s['iters']:.3f} ms/iter against 1-D hs "
+                  f"{1e3 * ell['hs'][1] / ell['hs'][0]:.3f}; tuner's modeled {modeled}; the "
+                  f"solve's modeled {1e3 * s['modeled_s'] / s['iters']:.6f} ms/iter", flush=True)
+            check(abs(s["iters"] - it1) <= 1, f"{tag}: {s['iters']} iterations, 1-D {it1}")
+            check(set(rep.summary) == {"BCMGX-analog"}, f"{tag}: legs {sorted(rep.summary)}")
+            if step == "a":
+                check(not tune.cached and tune.candidates_total == 108,
+                      f"{tag}: cached={tune.cached} space {tune.candidates_total}")
+                chosen = ch
+            else:
+                check(tune.cached and tune.candidates_trialed == 0 and ch == chosen
+                      and sess.partitions == parts0,
+                      f"{tag}: not a clean cache hit ({tune.cached}, {ch.label})")
+
+        tag = "tune-c"
+        t0, parts0 = time.perf_counter(), sess.partitions
+        cfg = api.SolverConfig(autotune=True, tune_budget=TUNE_BUDGET[1], tune_cache=cache,
+                               nrhs=NRHS, maxiter=MAXITER)
+        rep = solve_path(tag, api, spec, cfg, sess, launches, tuned_expected(sess, NRHS))
+        tune = tune_report(tag, sess, rep, t0, parts0)
+        it = rep.summary["BCMGX-analog"]["iters"]
+        print(f"{tag}: winner {tune.chosen.label} block iters {it} (ELL block path "
+              f"{block_iters}), per_solve_wall "
+              f"{rep.solvers['BCMGX-analog']['per_solve_wall_s']:.4f} s", flush=True)
+        check(not tune.cached and tune.candidates_total == 36 and tune.chosen.variant == "hs",
+              f"{tag}: cached={tune.cached} space {tune.candidates_total} {tune.chosen.label}")
+        check(abs(it - block_iters) <= 1, f"{tag}: {it} iterations, ELL block {block_iters}")
+
+        tag = "tune-d"
+        t0 = time.perf_counter()
+        wspec = api.ProblemSpec("poisson7", side=wide[0], shards=wide[1])
+        wsess = api.session_for(wspec, dev)
+        print(f"{tag}: poisson7 side {wide[0]} on {wide[1]} shards, n={wsess.n}, session "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        parts0 = wsess.partitions
+        cfg = api.SolverConfig(autotune=True, objective="time", tune_budget=TUNE_BUDGET[0],
+                               tune_cache=cache, maxiter=MAXITER)
+        rep = solve_path(tag, api, wspec, cfg, wsess, launches, tuned_expected(wsess))
+        tune = tune_report(tag, wsess, rep, t0, parts0)
+        check(not tune.cached and tune.candidates_total == 432,
+              f"{tag}: cached={tune.cached} space {tune.candidates_total}")
+        # the model stage's price of the grid and s-step candidates, beside 1-D hs
+        g = default_grid(wide[1])
+        mat = wsess.matrix()
+        stored = format_stored_bytes(interior_stats(wsess.a, mat.row_starts))
+        cost = CostModel()
+        preds = [predict(mat, c, stored, cost=cost, objective="time")
+                 for c in enumerate_space(grids=(None, g), sstep_s=(2, 4, 6)) if c.fmt != "auto"]
+        for what, keep in (("1-D hs", lambda c: c.grid is None and c.variant == "hs"),
+                           (f"grid {g[0]}x{g[1]}", lambda c: c.grid == g),
+                           ("s-step", lambda c: c.variant == "sstep")):
+            best = min((p for p in preds if keep(p.candidate)), key=lambda p: p.time_s)
+            check(math.isfinite(best.time_s) and best.time_s > 0, f"{tag}: {what} not priced")
+            print(f"{tag}: best predicted {what}: {best.candidate.label} "
+                  f"{1e3 * best.time_s:.6f} ms/iter", flush=True)
+        ch = tune.chosen
+        led = rep.ledger
+        if ch.grid is not None:
+            plan = wsess.mats[wsess.matrix_key(ch.fmt, ch.block, ch.s if ch.variant == "sstep"
+                                               else 1, ch.grid)].plan
+            rows_b, cols_b = plan.dim_bytes_per_shard(8)
+            check(led["grid"] == list(ch.grid) and (led["halo_bytes_rows"],
+                  led["halo_bytes_cols"]) == (float(rows_b), float(cols_b)),
+                  f"{tag}: grid ledger {led.get('grid')}")
+            print(f"{tag}: grid winner, halo_bytes_rows {led['halo_bytes_rows']:.0f} "
+                  f"halo_bytes_cols {led['halo_bytes_cols']:.0f}", flush=True)
+        api.SESSIONS.pop(wsess.key, None)
+        wsess.close()  # frees the card's copy before the next paths
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def main():
@@ -1918,9 +2163,15 @@ def main():
     _, sess_g3, mat_g3 = suitesparse_session(api, "G3_circuit", dev)
     g3_paths(dev, sess_g3, mat_g3, launches)
     stamp("the interior formats")
+    # --- the energy-aware tuner (api.solve with autotune=True) ------------
+    torch.cuda.empty_cache()
+    autotune_phase(api, spec, sess, dev, launches, ell,
+                   reps["block"].summary["BCMGX-analog"]["iters"])
+    torch.cuda.empty_cache()
+    stamp("the tuner")
     # --- the AmgX analog at side AMG_SIDE_AMGX ---------------------------
     torch.cuda.empty_cache()
-    sess_amgx = amgx_paths(api, dev, launches)
+    amgx_paths(api, dev, launches)
     stamp("the AmgX analog")
     for name, n in launches.items():
         rows[name]["launches"] = n
@@ -1941,8 +2192,7 @@ def main():
 
     stamp("the profiles without AMG")
     profile_amg(sess, dev, pre_amg, "hs")
-    profile_amg(sess_amgx, dev, sess_amgx.amg(True)[0], "hs")
-    stamp("the AMG profiles")
+    stamp("the AMG profile")
 
     keys =("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

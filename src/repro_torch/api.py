@@ -10,7 +10,9 @@ stored-bytes cost model picks), with the BCMGX-analog (or AmgX-analog) leg
 and the Ginkgo-analog leg beside it where the JAX package runs one. CG
 also runs on a 2-D ``R x C`` process grid (``grid="RxC"``): per-dimension
 halos, all-reduces staged over the grid, and, for a Poisson cube, the
-pencil-permuted system.
+pencil-permuted system. ``autotune=True`` lets the energy-aware tuner
+(``repro_torch.autotune``) choose the format, variant, schedule, grid,
+s-step block and modeled frequency of an unpreconditioned CG solve.
 
 * :class:`ProblemSpec` — *what* to solve (problem/side/scale/shards);
 * :class:`SolverConfig` — *how* to solve it, with the JAX package's
@@ -289,8 +291,6 @@ class SolverConfig:
     def check_ported(self):
         """Raise ``NotImplementedError`` for a valid config the port cannot
         run yet, naming its ``ROADMAP.md`` queue item."""
-        if self.autotune:
-            _not_ported("autotuning", "item 13")
         if self.telemetry:
             _not_ported("convergence telemetry", "item 14")
 
@@ -336,9 +336,12 @@ class SolverSession:
       trace captured at its first solve;
     * the AMG preconditioners (:meth:`amg`). The JAX package builds the
       hierarchy again on every solve; a session keeps it, as it keeps its
-      partitions, and only the solve that built it reports setup seconds.
+      partitions, and only the solve that built it reports setup seconds;
+    * ``tune`` — the last :class:`~repro_torch.autotune.TuneResult` routed
+      through :meth:`autotune`, whose trial partitions land in ``mats``.
 
-    ``partitions`` / ``solves`` count the work actually performed. A
+    ``partitions`` / ``tune_trials`` / ``solves`` count the work actually
+    performed (:meth:`stats`). A
     session of a pencil-permuted Poisson cube holds ``A[perm][:, perm]``
     and ``pencil = (grid, perm, row_partition)``, ``reorder_s`` the seconds
     the permutation took (:func:`session_for`).
@@ -359,7 +362,9 @@ class SolverSession:
         self.partition_s: dict[tuple, float] = {}
         self.handles: dict[tuple, Any] = {}
         self.amgs: dict[bool, tuple] = {}  # amgx_analog -> (precond, info)
+        self.tune = None  # last TuneResult routed through this session
         self.partitions = 0
+        self.tune_trials = 0
         self.solves = 0
 
     def _partition(self, k, **kw):
@@ -424,6 +429,28 @@ class SolverSession:
         self.amgs[key] = (pre, info)
         return pre, info, time.perf_counter() - t0
 
+    def autotune(self, *, objective: str = "energy", budget: int = 6,
+                 cache_path: str | None = None, tol: float = 1e-8,
+                 nrhs: int = 1, cost=None):
+        """Run (or cache-hit) the two-stage autotuner through this session,
+        on its device. Trial partitions land in ``mats`` (their seconds in
+        ``partition_s``), so the winner's partition is reused by the final
+        solve; executed trials and new partitions are charged to the
+        session's counters. ``cost`` defaults to ``CostModel()``."""
+        from repro_torch.autotune import DEFAULT_PATH
+        from repro_torch.autotune import autotune as run_autotune
+
+        before = len(self.mats)
+        tune = run_autotune(
+            self.a, self.n_shards, device=self.device, objective=objective,
+            budget=budget, cost=cost, cache_path=cache_path or DEFAULT_PATH,
+            tol=tol, mats=self.mats, nrhs=nrhs, partition_s=self.partition_s,
+        )
+        self.partitions += len(self.mats) - before
+        self.tune_trials += tune.candidates_trialed
+        self.tune = tune
+        return tune
+
     def naive_matrix(self):
         """The padded-global (all-gather) partition of the naive baseline."""
         return self._partition(("allgather", 0), force_allgather=True)
@@ -441,11 +468,21 @@ class SolverSession:
         )
 
     def close(self):
-        """Release partitions and handles; the session stays usable cold."""
+        """Release partitions, handles and the last tuning result; the
+        session stays usable cold."""
         self.mats.clear()
         self.partition_s.clear()
         self.handles.clear()
         self.amgs.clear()
+        self.tune = None
+
+    def stats(self) -> dict:
+        """JSON-ready counters of the work this session performed."""
+        return dict(
+            n=self.n, shards=self.n_shards, partitions=self.partitions,
+            tune_trials=self.tune_trials, solves=self.solves,
+            mats=len(self.mats),
+        )
 
 
 #: Process-wide sessions keyed by (problem, side, scale, shards, device,
@@ -571,6 +608,16 @@ def solve(
     staged tree depth, and no Ginkgo-analog leg runs. The ledger then
     carries ``grid``, ``halo_bytes_rows`` and ``halo_bytes_cols``.
 
+    ``config.autotune`` tunes the solve first (:meth:`SolverSession.autotune`
+    on the 1-D session, objective ``config.objective``, budget
+    ``config.tune_budget``, cache ``config.tune_cache``): the chosen format,
+    block, variant, overlap, s-step block and grid drive the solve, and the
+    ledger is priced at the chosen modeled frequency (the card's clock is
+    not touched). A chosen grid partitions the session's own matrix in its
+    given order (no pencil permutation), as the JAX package does. No
+    Ginkgo-analog leg runs (the trials are the comparison), and the ledger
+    carries the ``autotune`` section.
+
     Each CG leg runs one warm-up solve (whose counts become the energy
     trace) and then ``config.repeats`` timed solves; an SpMV leg one warm-up
     and 100 timed products. ``amg``/``amgx_analog`` take the session's AMG
@@ -618,8 +665,35 @@ def solve(
     name = spec.label
     n = a.shape[0]
     b = np.ones(n)
+    nrhs = config.nrhs
+    log(f"problem={name} n={n} nnz={a.nnz} shards={n_shards} nrhs={nrhs}")
+
+    cost = CostModel()
+    tune = None
+    fmt, block = config.fmt, config.block
+    variant, overlap = config.variant, config.overlap
+    sstep_s = config.s or 2  # s-step block size (used iff variant == sstep)
+    if config.autotune:
+        # --grid and --autotune exclude each other: the session is the 1-D
+        # one, and a chosen grid partitions its matrix as it stands
+        tune = session.autotune(
+            objective=config.objective, budget=config.tune_budget,
+            cache_path=config.tune_cache, tol=config.tol, nrhs=nrhs, cost=cost,
+        )
+        ch = tune.chosen
+        fmt, block = ch.fmt, ch.block
+        variant, overlap = ch.variant, ch.overlap
+        if ch.variant == "sstep":
+            sstep_s = ch.s
+        grid = ch.grid
+        cost = cost.at_freq(ch.freq)
+        log(
+            f"autotune: objective={tune.objective} chosen={ch.label} "
+            f"cached={tune.cached} trialed={tune.candidates_trialed} "
+            f"(space {tune.candidates_total})"
+        )
     grid_part = None
-    pgrid = _pencil_grid(spec, grid)
+    pgrid = None if config.autotune else _pencil_grid(spec, grid)
     if pgrid is not None:
         # the pencil-reordered system A[perm][:, perm] (same spectrum, CG
         # iterates the same up to the permutation): each shard owns a z x y
@@ -632,13 +706,11 @@ def solve(
             from repro_torch.matrices import poisson
 
             grid_part = pencil_partition(poisson.cube(spec.side, spec.stencil), pgrid)[1]
-    log(f"problem={name} n={n} nnz={a.nnz} shards={n_shards} nrhs={config.nrhs}")
 
     def sync():
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
-    cost = CostModel()
     if grid is not None:
         from repro_torch.roofline.analysis import reduce_hops
 
@@ -646,13 +718,13 @@ def solve(
         # launch is deeper than the longer one (the extra stage launches
         # are in the trace)
         cost = dataclasses.replace(cost, coll_hops=float(reduce_hops(n_shards, grid)))
-    overlap = config.overlap
     payload = dict(
         schema=1, problem=name, n=int(n), nnz=int(a.nnz),
         shards=int(n_shards), op=config.op, overlap=bool(overlap),
-        format=config.fmt, nrhs=config.nrhs, solvers={}, meta=ledger_meta(dev),
+        format=fmt, nrhs=nrhs, solvers={}, meta=ledger_meta(dev),
     )
-    nrhs = config.nrhs
+    if tune is not None:
+        payload["autotune"] = tune.ledger_section()
     precond = None
     setup_time = 0.0
     if config.amg or config.amgx_analog:
@@ -667,24 +739,24 @@ def solve(
             level_nnz=list(amg_info.level_nnz),
             operator_complexity=amg_info.operator_complexity,
         )
-    sstep_s = config.s or 2  # s-step block size (used iff variant == sstep)
     # an s-step solve partitions with halo_depth=s so the matrix-powers
-    # basis pays one widened exchange per s-iteration block
-    depth = sstep_s if (config.variant == "sstep" and config.op == "cg") else 1
-    mkey = session.matrix_key(config.fmt, config.block, depth, grid)
-    mat = session.matrix(config.fmt, config.block, grid=grid, partition=grid_part,
-                         halo_depth=depth)
+    # basis pays one widened exchange per s-iteration block; a tuned solve
+    # finds its winner's partition among the session's (the trials' keys)
+    depth = sstep_s if (variant == "sstep" and config.op == "cg") else 1
+    mkey = session.matrix_key(fmt, block, depth, grid)
+    mat = session.matrix(fmt, block, grid=grid, partition=grid_part, halo_depth=depth)
     # the naive baseline keeps the flat ELL layout and is single-RHS by
     # definition: its (expensive) all-gather partition is built only when
     # a naive leg will run (the paper compares its PCG with AmgX, not
-    # Ginkgo; a grid run's comparison leg is the 1-D run of the problem)
+    # Ginkgo; a grid run's comparison leg is the 1-D run of the problem, a
+    # tuned run's the trials)
     need_naive = (
         mat.fmt == "ell" if config.op == "spmv"
-        else nrhs == 1 and precond is None and grid is None
+        else nrhs == 1 and precond is None and grid is None and tune is None
     )
     matg = session.naive_matrix() if need_naive else None
     log(
-        f"format={mat.fmt} (requested {config.fmt}) "
+        f"format={mat.fmt} (requested {fmt}) "
         f"interior_bytes={mat.interior_stored_bytes()} "
         f"stored_bytes={mat.stored_bytes()}"
     )
@@ -696,10 +768,11 @@ def solve(
         # fallback reports 1: the matrix-powers path did not engage)
         payload["halo_depth"] = int(mat.halo_depth)
         payload["s"] = int(sstep_s)
-    if grid_cfg is not None:
-        # written whenever a grid is given, 1 x N included
+    if grid is not None or grid_cfg is not None:
+        # written whenever a grid is given (1 x N included) or tuned
+        g = grid or grid_cfg
         rows_b, cols_b = _plan_dim_bytes(mat.plan)
-        payload["grid"] = [int(grid_cfg[0]), int(grid_cfg[1])]
+        payload["grid"] = [int(g[0]), int(g[1])]
         payload["halo_bytes_rows"] = rows_b
         payload["halo_bytes_cols"] = cols_b
 
@@ -765,7 +838,7 @@ def solve(
     legs = [
         ("AmgX-analog" if config.amgx_analog else "BCMGX-analog", mat, mkey,
          session.solver(
-             mat, nrhs=nrhs, variant=config.variant, precond=precond,
+             mat, nrhs=nrhs, variant=variant, precond=precond,
              tol=config.tol, maxiter=config.maxiter, overlap=overlap, s=sstep_s,
          )),
     ]
@@ -811,7 +884,7 @@ def solve(
         entry = dict(
             led, wall_s=wall, modeled_s=t_model,
             relres=relres, setup_s=setup_time,
-            variant=config.variant if is_bcmgx else "naive",
+            variant=variant if is_bcmgx else "naive",
             # per-solve amortization view: a batched run is nrhs solves
             nrhs=nrhs,
             per_solve_modeled_s=t_model / nrhs,

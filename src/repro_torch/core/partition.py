@@ -772,10 +772,15 @@ def block_stats_from_arrays(
     n_bcols = -(-R // bc)
     if not len(c_loc):
         return 0, 0
-    keys = np.unique(
+    # distinct tile keys by one stable sort and a neighbour test, not
+    # np.unique: NumPy 2.3 hashes integer keys there while holding the GIL,
+    # so the tuner's per-shard counts on host threads ran one at a time
+    keys = np.sort(
         (np.asarray(r_loc, np.int64) // br) * n_bcols
-        + np.asarray(c_loc, np.int64) // bc
+        + np.asarray(c_loc, np.int64) // bc,
+        kind="stable",
     )
+    keys = keys[np.concatenate(([True], keys[1:] != keys[:-1]))]
     counts = np.bincount(keys // n_bcols)
     return len(keys), int(counts.max())
 

@@ -61,7 +61,8 @@ def ell_cost(
 ) -> FormatCost:
     """``shard_row_lens``: per shard, the interior nnz of each local row;
     ``n_rows`` the padded rows per shard (R = n_own_pad)."""
-    k = max((int(max(lens, default=0)) for lens in shard_row_lens), default=0)
+    k = max((int(np.max(lens)) if len(lens) else 0 for lens in shard_row_lens),
+            default=0)
     k = max(k, 1)
     S = len(shard_row_lens)
     stored = S * n_rows * k * (value_bytes + INDEX_BYTES)

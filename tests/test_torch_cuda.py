@@ -675,3 +675,56 @@ def test_cuda_grid_solve_matches_cpu(cuda_device, variant):
     assert rep["cuda"].summary["BCMGX-analog"]["relres"] <= 1e-8
     xc, xg = rep["cpu"].outputs["BCMGX-analog"], rep["cuda"].outputs["BCMGX-analog"]
     assert abs(xg - xc).max() <= 1e-9 * abs(xc).max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 8])
+def test_cuda_autotune_matches_cpu(cuda_device, tmp_path, S):
+    """The tuner at side 8 with its trials on the card makes the CPU's
+    decision (the executed counts are the same): the chosen candidate, each
+    trial's iterations, the candidate counts. Every partition the trials
+    made stays on the card, and the trials launch the hand kernels."""
+    from repro_torch.autotune import autotune
+    from repro_torch.matrices.poisson import cube, poisson_scipy
+
+    a = poisson_scipy(cube(8, "7pt"))
+    res, mats = {}, {}
+    for dev in ("cpu", "cuda"):
+        mats[dev] = {}
+        n0 = fr.fused_dots_n.launches
+        res[dev] = autotune(a, S, device=dev, objective="energy", budget=2, trial_iters=4,
+                            cache_path=str(tmp_path / f"{dev}.json"), mats=mats[dev])
+    assert fr.fused_dots_n.launches > n0  # the hs and s-step trials ran on the card
+    c, g = res["cpu"], res["cuda"]
+    assert g.chosen == c.chosen and not g.cached
+    assert (g.candidates_total, g.candidates_pruned, g.candidates_trialed) == (
+        c.candidates_total, c.candidates_pruned, c.candidates_trialed)
+    assert g.candidates_total == (432 if S == 8 else 108)
+    assert [(t.candidate, t.executed, t.iters_trial, t.iters_est) for t in g.trials] == [
+        (t.candidate, t.executed, t.iters_trial, t.iters_est) for t in c.trials]
+    assert set(mats["cuda"]) == set(mats["cpu"])
+    assert all(m.device.type == "cuda" for m in mats["cuda"].values())
+
+
+@pytest.mark.cuda
+def test_cuda_tuned_solve_matches_cpu(cuda_device, tmp_path):
+    """``api.solve(autotune=True)`` on poisson7 at side 12 over 2 shards:
+    the same decision on the card as on the CPU, one leg, iterations within
+    1 and x within 1e-9; the repeat is a cache hit."""
+    from repro_torch import api
+
+    spec = api.ProblemSpec(side=12, shards=2)
+    rep = {}
+    for dev in ("cpu", "cuda"):
+        cfg = api.SolverConfig(autotune=True, tune_budget=2,
+                               tune_cache=str(tmp_path / f"{dev}.json"))
+        rep[dev] = api.solve(spec, cfg, device=dev, verbose=False)
+        again = api.solve(spec, cfg, device=dev, verbose=False)
+        assert again.ledger["autotune"]["cached"]
+    c, g = (rep[d].ledger["autotune"] for d in ("cpu", "cuda"))
+    assert g["chosen"] == c["chosen"] and set(rep["cuda"].summary) == {"BCMGX-analog"}
+    it = {d: r.summary["BCMGX-analog"]["iters"] for d, r in rep.items()}
+    assert abs(it["cuda"] - it["cpu"]) <= 1
+    assert rep["cuda"].summary["BCMGX-analog"]["relres"] <= 1e-8
+    xc, xg = rep["cpu"].outputs["BCMGX-analog"], rep["cuda"].outputs["BCMGX-analog"]
+    assert abs(xg - xc).max() <= 1e-9 * abs(xc).max()

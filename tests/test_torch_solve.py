@@ -291,7 +291,7 @@ def test_cli_runs_on_cpu():
     assert "relres=" in r.stdout
 
 
-def test_config_surface_matches_reference():
+def test_config_surface_matches_reference(tmp_path):
     from repro import api as japi
     from repro_torch import api
 
@@ -321,11 +321,16 @@ def test_config_surface_matches_reference():
     with pytest.raises(api.ConfigError, match="covers 4 shards; running with 1"):
         api.solve(api.ProblemSpec(side=6), api.SolverConfig(grid="2x2"), device="cpu",
                   verbose=False)
-    # autotune, telemetry and profiles are not ported yet
-    for kw, item in ((dict(config=api.SolverConfig(autotune=True)), "item 13"),
-                     (dict(config=api.SolverConfig(telemetry=True)), "item 14"),
-                     (dict(profile="trace.json"), "item 14")):
-        with pytest.raises(NotImplementedError, match=item):
+    # autotuning is ported: the tuned solve runs one leg and reports the
+    # decision; telemetry and profiles are not ported yet
+    rep = api.solve(api.ProblemSpec(side=6),
+                    api.SolverConfig(autotune=True, tune_budget=1,
+                                     tune_cache=str(tmp_path / "tune.json")),
+                    device="cpu", verbose=False)
+    assert set(rep.summary) == {"BCMGX-analog"} and not rep.ledger["autotune"]["cached"]
+    assert rep.summary["BCMGX-analog"]["relres"] <= 1e-8
+    for kw in (dict(config=api.SolverConfig(telemetry=True)), dict(profile="trace.json")):
+        with pytest.raises(NotImplementedError, match="item 14"):
             api.solve(api.ProblemSpec(side=6), device="cpu", verbose=False, **kw)
     # AMG is ported: the BCMGX-analog leg alone, with no Ginkgo leg
     rep = api.solve(api.ProblemSpec(side=6), api.SolverConfig(amg=True), device="cpu",
